@@ -79,6 +79,23 @@ def load_L_for(noise_type, bluenoise_dir="bluenoise"):
                       search_dirs=(".", bluenoise_dir), cache_dir=bluenoise_dir)
 
 
+def save_params(path, tree):
+    """A flax-style params tree of numpy arrays -> the flat ``.npz`` the JAX
+    package's ``save_params`` writes (keys 'params/a/b/leaf')."""
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+            else:
+                flat["/".join(prefix + (k,))] = np.asarray(v)
+
+    walk(tree.get("params", tree), ("params",))
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **flat)
+
+
 def load_params(path):
     """A flat ``.npz`` params file (as the JAX package's ``save_params``
     writes it, keys 'params/a/b/leaf') -> nested dict of numpy arrays."""

@@ -1,15 +1,18 @@
 """Pixel-space IADB/BNDM CLI in PyTorch, flag-compatible with the reference.
 
-Counterpart of ``bndm_tpu/cli/iadb_bn.py`` for serving: the same argparse
-surface plus ``--device``, the same run-folder and file names, and the two
+Counterpart of ``bndm_tpu/cli/iadb_bn.py``: the same argparse surface plus
+``--device``, the same run-folder and file names, the train mode and the two
 test modes (unconditional sampling and conditional super-res). It runs on
 CUDA unless ``--device=cpu`` is given, and raises when CUDA is missing.
 
-Usage (the reference's test scripts, with this module):
-  python -m bndm_tpu_torch.cli.iadb_bn --dataset=cat_res64 --res=64 \
-      --batch_size=500 --train_or_test=test --nb_steps=250 \
-      --test_samples=30000 --noise_type=gaussianBN --scheduler_gamma=sigmoid \
-      --scheduler_param=1000 --out_channel=6
+Usage (the reference's scripts, with this module):
+  train: --dataset=cat_res64 --res=64 --batch_size=64 --epochs=1000 \
+         --train_or_test=train --lr=0.0001 --grad_clip=1.0 \
+         --noise_type=gaussianBN --scheduler_gamma=sigmoid \
+         --scheduler_param=1000 --out_channel=6
+  test:  --dataset=cat_res64 --res=64 --batch_size=500 --train_or_test=test \
+         --nb_steps=250 --test_samples=30000 --noise_type=gaussianBN \
+         --scheduler_gamma=sigmoid --scheduler_param=1000 --out_channel=6
 
 Flags of features the port does not have yet raise ``NotImplementedError``
 naming their ROADMAP.md item; none is ignored.
@@ -105,8 +108,6 @@ def parse_args(argv=None):
 def _check_supported(opt):
     """Raise for every flag whose feature the port does not have yet."""
     later = [
-        (opt.train_or_test == "train", "--train_or_test=train",
-         "training (ROADMAP.md queue 1, item 5)"),
         (opt.microbatch is not None, "--microbatch",
          "sample_iadb_microbatched (ROADMAP.md queue 1, item 4)"),
         (opt.cache_interval is not None, "--cache_interval",
@@ -179,6 +180,88 @@ def build(opt, device):
     L = load_L_for(opt.noise_type, opt.bluenoise_dir)
     out_dir = output_folder_name(opt)
     return model, tcfg, L, out_dir
+
+
+def run_train(opt, device):
+    from bndm_tpu_torch.ckpt.manager import CheckpointManager
+    from bndm_tpu_torch.cli.common import load_pixel_unet_params, save_params
+    from bndm_tpu_torch.data.imagefolder import BatchLoader, ImageFolderDataset
+    from bndm_tpu_torch.models.convert import export_torch_ckpt, flax_from_state_dict
+    from bndm_tpu_torch.train.pixel import PixelTrainer
+    from bndm_tpu_torch.utils.logging import (MetricLogger, save_loss_curve,
+                                              save_sched_param_curves)
+
+    torch.manual_seed(opt.seed)  # the model's random init
+    model, tcfg, L, out_dir = build(opt, device)
+    os.makedirs(out_dir, exist_ok=True)
+    print("output_folder:", out_dir)
+
+    suffix = "_train" if opt.is_conditional else ""
+    ds = ImageFolderDataset(os.path.join(opt.data_root, opt.dataset + suffix), opt.res,
+                            random_flip=True, seed=opt.seed)
+    # one host: the whole batch is this process's shard (0 of 1)
+    loader = BatchLoader(ds, opt.batch_size, seed=opt.seed)
+    trainer = PixelTrainer(model.train(), tcfg, L, seed=opt.seed)
+
+    mgr = CheckpointManager(os.path.join(out_dir, "checkpoints"))
+    start_step = 0
+    if opt.resume_training:
+        # full-state resume (weights + both optimizers + sched params +
+        # step); falls back to the reference's weights-only model file
+        if mgr.restore(trainer.state) is not None:
+            start_step = trainer.state.step
+            print(f"resumed full state at step {start_step}")
+        else:
+            try:
+                model.load_state_dict(load_pixel_unet_params(out_dir), strict=True)
+                print("resumed weights only (reference-style, model.npz or torch model.ckpt)")
+            except FileNotFoundError:
+                pass
+    logger = MetricLogger(os.path.join(out_dir, "logs"))
+
+    losses = []
+    sp_hist = [[], [], []]
+    step = start_step
+    t0 = time.time()
+    for epoch in range(opt.epochs):
+        # device tensors, read once per epoch: no host sync per step
+        epoch_metrics = []
+        for batch in loader.epoch(epoch):
+            batch = torch.from_numpy(batch).to(device, non_blocking=True)
+            epoch_metrics.append(trainer.step(batch, (opt.seed, step)))
+            step += 1
+            if opt.max_steps and step >= opt.max_steps:
+                break
+        if not epoch_metrics:
+            raise ValueError(f"an epoch of {len(ds)} images has no batch of {opt.batch_size}")
+        keys = ("loss", "sched_tau", "sched_s", "sched_e")
+        fetched = torch.stack([torch.stack([m[k] for k in keys])
+                               for m in epoch_metrics]).cpu().numpy()
+        losses.extend(float(v) for v in fetched[:, 0])
+        for j in range(3):
+            sp_hist[j].extend(float(v) for v in fetched[:, 1 + j])
+        for off, row in enumerate(fetched):
+            logger.log({"loss": row[0]}, step - len(fetched) + off)
+        tau, s, e = fetched[-1, 1:]
+        print(f"epoch {epoch}: mean loss {np.mean(losses[-max(len(loader), 1):]):.2f} "
+              f"sched_params tau={tau:.4f} s={s:.4f} e={e:.4f} "
+              f"({step} steps, {time.time() - t0:.0f}s)")
+        np.savetxt(os.path.join(out_dir, "losses.txt"), np.asarray(losses))
+        np.savetxt(os.path.join(out_dir, "scheduler_params.txt"),
+                   trainer.state.sched_params.detach().cpu().numpy())
+        save_loss_curve(losses, os.path.join(out_dir, "losses.png"))
+        save_sched_param_curves(*sp_hist, os.path.join(out_dir, "scheduler_params.png"))
+        save_params(os.path.join(out_dir, "model.npz"), flax_from_state_dict(model.state_dict()))
+        mgr.save(step, trainer.state)
+        if opt.export_reference_ckpt:
+            # the reference's torch state_dict at its path and format
+            export_torch_ckpt(model, os.path.join(out_dir, "model.ckpt"))
+        if opt.max_steps and step >= opt.max_steps:
+            break
+    mgr.wait()
+    mgr.close()
+    logger.close()
+    return out_dir
 
 
 def _load_model(model, out_dir):
@@ -368,10 +451,11 @@ def main(argv=None):
     device = resolve_device(opt.device)
     disable_tf32()
     np.random.seed(opt.seed)
+    if opt.train_or_test == "train":
+        return run_train(opt, device)
     if opt.is_conditional:
-        run_superres_test(opt, device)
-    else:
-        run_test(opt, device)
+        return run_superres_test(opt, device)
+    return run_test(opt, device)
 
 
 if __name__ == "__main__":

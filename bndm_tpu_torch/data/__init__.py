@@ -1,3 +1,3 @@
-from bndm_tpu_torch.data.imagefolder import ImageFolderDataset
+from bndm_tpu_torch.data.imagefolder import BatchLoader, ImageFolderDataset
 
-__all__ = ["ImageFolderDataset"]
+__all__ = ["BatchLoader", "ImageFolderDataset"]

@@ -1,16 +1,20 @@
-"""Host-side image data: ImageFolder listing, transforms and synthetic trees.
+"""Host-side image data: ImageFolder listing, transforms, batches, synthetic trees.
 
-Counterpart of ``bndm_tpu/data/imagefolder.py`` for the serving slice: the
-reference's torchvision transform (Resize(shorter side) -> CenterCrop ->
-optional horizontal flip -> ToTensor) written with PIL and numpy. Outputs are
-float32 CHW in [0, 1]. The JAX package's native C++ transform and its
-``BatchLoader`` come to the port later (ROADMAP.md, queue 1 item 6 and the
-training slice).
+Counterpart of ``bndm_tpu/data/imagefolder.py``: the reference's torchvision
+transform (Resize(shorter side) -> CenterCrop -> optional horizontal flip ->
+ToTensor) written with PIL and numpy, and ``BatchLoader``, whose per-epoch
+shuffle, flips and crops draw the same numbers as the JAX package's, so both
+load the same batches. Outputs are float32 CHW (NCHW batches) in [0, 1]. The
+JAX package's native C++ transform comes to the port later (ROADMAP.md,
+queue 1 item 6).
 """
 
 from __future__ import annotations
 
 import os
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -76,6 +80,94 @@ class ImageFolderDataset:
 
     def get(self, idx, hflip=False, crop_u=None):
         return _load_and_transform(self.files[idx], self.res, hflip, crop_u)
+
+
+class BatchLoader:
+    """Shuffled, drop-last batch iterator with threaded decode + prefetch.
+
+    ``shard_index / shard_count``: per-host sharding for multi-host data
+    parallelism (each host loads its slice of the global batch); the port
+    runs on one host, at (0, 1).
+    """
+
+    def __init__(self, dataset: ImageFolderDataset, batch_size, shuffle=True,
+                 num_threads=8, prefetch=2, seed=0, shard_index=0, shard_count=1,
+                 drop_last=True):
+        self.ds = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.num_threads = num_threads
+        self.prefetch = prefetch
+        self.seed = seed
+        self.shard_index = shard_index
+        self.shard_count = shard_count
+        self.drop_last = drop_last
+        self._epoch = 0
+
+    def __len__(self):
+        n = len(self.ds) // self.shard_count
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def epoch(self, epoch=None):
+        """Iterate one epoch of (B, C, H, W) float32 batches, decoded ahead on
+        a thread pool."""
+        if epoch is None:
+            epoch = self._epoch
+            self._epoch += 1
+        rng = np.random.default_rng((self.seed, epoch))
+        idx = np.arange(len(self.ds))
+        if self.shuffle:
+            rng.shuffle(idx)
+        idx = idx[self.shard_index:: self.shard_count]
+        nb = len(idx) // self.batch_size if self.drop_last else -(-len(idx) // self.batch_size)
+        flips = rng.random(len(self.ds)) < 0.5 if self.ds.random_flip else np.zeros(len(self.ds), bool)
+        # per-item (u_top, u_left) random-crop draws, deterministic per epoch
+        crops = rng.random((len(self.ds), 2)) if self.ds.random_crop else None
+
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        pool = ThreadPoolExecutor(max_workers=self.num_threads)
+
+        def produce():
+            try:
+                for b in range(nb):
+                    sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
+                    imgs = list(pool.map(
+                        lambda i: self.ds.get(i, bool(flips[i]),
+                                              None if crops is None else crops[i]),
+                        sel))
+                    if not _put(q, np.stack(imgs), stop):
+                        return
+            except Exception as e:  # noqa: BLE001 -- re-raised by the consumer
+                _put(q, e, stop)
+                return
+            _put(q, None, stop)
+
+        t = threading.Thread(target=produce, daemon=True)
+        t.start()
+        try:
+            while True:
+                batch = q.get()
+                if batch is None:
+                    break
+                if isinstance(batch, Exception):
+                    raise batch
+                yield batch
+        finally:
+            stop.set()
+            t.join()
+            pool.shutdown(wait=True)
+
+
+def _put(q, item, stop):
+    """Put ``item`` unless the consumer has gone; returns whether it did."""
+    while not stop.is_set():
+        try:
+            q.put(item, timeout=0.1)
+            return True
+        except queue.Full:
+            continue
+    return False
 
 
 def make_synthetic_folder(root, n=8, res=64, seed=0):

@@ -1,10 +1,14 @@
-"""Weight carry into the PyTorch UNet.
+"""Weight carry between the PyTorch UNet and the JAX package's layout.
 
 The port's own copy of the JAX package's converter
-(``bndm_tpu/models/convert.py::convert_flax_params``): a flax params tree of
-numpy arrays becomes a diffusers-named state_dict of torch tensors.
+(``bndm_tpu/models/convert.py``): ``state_dict_from_flax`` carries a flax
+params tree of numpy arrays into a diffusers-named state_dict of torch
+tensors (``convert_flax_params``), ``flax_from_state_dict`` carries it back
+(``torch_key_to_flax_path`` + ``convert_torch_state_dict``), so a model
+trained by the port is written in the ``model.npz`` layout the JAX package
+reads.
 
-Layout rules (flax -> torch):
+Layout rules (flax -> torch; the reverse inverts them):
   conv kernel (kh, kw, I, O)  -> weight (O, I, kh, kw)
   dense kernel (I, O)         -> weight (O, I)
   norm scale/bias             -> weight/bias
@@ -86,3 +90,51 @@ def load_torch_checkpoint(path):
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]
     return sd
+
+
+def torch_key_to_flax_path(key):
+    """'down_blocks.0.resnets.1.conv1.weight' ->
+    ('down_blocks_0', 'resnets_1', 'conv1', 'weight')."""
+    merged = []
+    for p in key.split("."):
+        if p.isdigit() and merged:
+            merged[-1] = f"{merged[-1]}_{p}"
+        else:
+            merged.append(p)
+    return tuple(merged)
+
+
+def flax_from_state_dict(sd):
+    """torch-style flat state_dict (torch tensors or numpy) -> flax params
+    tree ``{"params": ...}`` of fp32 numpy arrays. Legacy attention names are
+    renamed and non-parameter buffers skipped first
+    (:func:`canonical_state_dict`)."""
+    params = {}
+    for key, val in canonical_state_dict(sd).items():
+        arr = val.detach().float().cpu().numpy() if isinstance(val, torch.Tensor) \
+            else np.asarray(val, np.float32)
+        *module, leaf = torch_key_to_flax_path(key)
+        if leaf == "weight":
+            if arr.ndim == 4:
+                name, arr = "kernel", np.transpose(arr, (2, 3, 1, 0))
+            elif arr.ndim == 2:
+                name, arr = "kernel", arr.T
+            elif arr.ndim == 1:  # norm scale
+                name = "scale"
+            else:
+                raise ValueError(f"unexpected weight ndim for {key}: {arr.shape}")
+        else:
+            name = "bias"
+        node = params
+        for p in module:
+            node = node.setdefault(p, {})
+        node[name] = np.ascontiguousarray(arr)
+    return {"params": params}
+
+
+def export_torch_ckpt(model, path):
+    """The model's weights as a reference ``model.ckpt``: an fp32 state_dict
+    with the diffusers keys, loadable by the reference's
+    ``model.load_state_dict(torch.load(...))``."""
+    torch.save({k: v.detach().float().cpu().clone() for k, v in model.state_dict().items()},
+               path)

@@ -1,17 +1,25 @@
-"""The blue-noise correlation matmul: ``noise_bn = L @ white``.
+"""The blue-noise kernels: ``noise_bn = L @ white``, alone and fused.
 
-PyTorch counterpart of ``bndm_tpu/ops/pallas_bluenoise.py`` (``_pallas_matmul``
-and ``apply_L``). L is the dense lower-triangular (4096, 4096) covariance
-factor and white the flattened noise folded to (4096, B*C). On a CUDA tensor
-the product runs in the hand-written kernel ``csrc/tri_matmul.cu`` (K1),
-which skips the column tiles above the diagonal and sums in fp32; on a CPU
-tensor it runs in the plain fp32 version below. There is no fallback from one
-to the other: a CUDA call launches the kernel or raises.
+PyTorch counterpart of ``bndm_tpu/ops/pallas_bluenoise.py``. L is the dense
+lower-triangular (4096, 4096) covariance factor and white the flattened noise
+folded to (4096, B*C), batch and channel as columns.
+
+  * K1, :func:`tri_matmul` (``_pallas_matmul`` / ``apply_L``): the product
+    alone, in ``csrc/tri_matmul.cu``.
+  * K2, :func:`fused_bluenoise_flat` (``_fused_bluenoise_flat``): white noise
+    from a counter-based generator, the product and the gamma mix in one
+    kernel, ``csrc/fused_bluenoise.cu``. K3, :class:`FusedBlueNoise` (the
+    custom JVP ``_fused_flat_diff``), carries the gradient to gamma.
+
+On a CUDA tensor each wrapper launches its hand-written kernel; on a CPU
+tensor it runs the plain PyTorch version beside it. There is no fallback from
+one to the other: a CUDA call launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -92,3 +100,166 @@ def apply_L(L, wf):
     w2 = wf.permute(1, 0, 2).reshape(n, b * c).float().contiguous()
     out = tri_matmul(L.float().contiguous(), w2)
     return out.reshape(n, b, c).permute(1, 0, 2).to(wf.dtype)
+
+
+# ------------------- K2: fused RNG -> L-matmul -> mix ------------------------
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_MASK32 = 0xFFFFFFFF
+
+
+def _mulhilo32(a, b):
+    """(high, low) 32-bit words of ``a * b`` for a 32-bit constant ``a`` and
+    an int64 tensor ``b`` of uint32 values. ``b`` is split at 16 bits, so no
+    partial product leaves int64."""
+    p_lo = a * (b & 0xFFFF)
+    p_hi = a * (b >> 16)
+    return (p_hi + (p_lo >> 16)) >> 16, (((p_hi & 0xFFFF) << 16) + p_lo) & _MASK32
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 (Salmon et al., SC'11; Random123's ``philox4x32``).
+
+    ``counter``: four broadcastable int64 tensors holding uint32 words;
+    ``key``: two ints. Returns the four output words as int64 tensors.
+    """
+    c0, c1, c2, c3 = counter
+    k0, k1 = (int(k) & _MASK32 for k in key)
+    for _ in range(10):
+        hi0, lo0 = _mulhilo32(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo32(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W[0]) & _MASK32
+        k1 = (k1 + _PHILOX_W[1]) & _MASK32
+    return c0, c1, c2, c3
+
+
+def _bits_to_unit(bits):
+    """uint32 word -> float32 in (0, 1): top 24 bits * 2^-24 + 2^-25 (the
+    rule of ``_bits_to_unit`` in the JAX package)."""
+    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24)) + (0.5 / (1 << 24))
+
+
+def white_noise_plain(n, m, seeds, device=None):
+    """K2's white noise, (n, m) fp32: Philox4x32-10 at counter (row, column,
+    0, 0) with key ``seeds``, words 0 and 1 as u1 and u2, then
+    ``sqrt(-2 ln u1) * cos(2 pi u2)``."""
+    rows = torch.arange(n, dtype=torch.int64, device=device)[:, None]
+    cols = torch.arange(m, dtype=torch.int64, device=device)[None, :]
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    w0, w1, _, _ = philox4x32_10((rows, cols, zero, zero), seeds)
+    u1, u2 = _bits_to_unit(w0), _bits_to_unit(w1)
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+
+
+def fused_bluenoise_flat_plain(L, gamma_cols, seeds, gbn_only=False):
+    """K2 in plain PyTorch: the same generator bits, the same uniform and
+    Box-Muller, ``L @ wn`` in fp32, then the mix. Returns (noise, bn, wn)."""
+    wn = white_noise_plain(L.shape[0], gamma_cols.shape[0], seeds, L.device)
+    bn = tri_matmul_plain(L, wn)
+    if gbn_only:
+        return bn.clone(), bn, wn
+    g = gamma_cols.float()[None, :]
+    return bn * (1.0 - g) + wn * g, bn, wn
+
+
+def _check_fused(L, gamma_cols, seeds):
+    if L.dim() != 2 or L.shape[0] != L.shape[1] or L.shape[0] == 0:
+        raise ValueError(f"L must be square 2-D, got {tuple(L.shape)}")
+    if gamma_cols.dim() != 1 or gamma_cols.shape[0] == 0:
+        raise ValueError(f"gamma_cols must be (M,), got {tuple(gamma_cols.shape)}")
+    if L.dtype != torch.float32 or gamma_cols.dtype != torch.float32:
+        raise TypeError(f"fused_bluenoise takes float32, got {L.dtype} and {gamma_cols.dtype}")
+    if L.device != gamma_cols.device:
+        raise ValueError(f"L is on {L.device} but gamma_cols is on {gamma_cols.device}")
+    if not (L.is_contiguous() and gamma_cols.is_contiguous()):
+        raise ValueError("fused_bluenoise takes contiguous L and gamma_cols")
+    if L.shape[0] * max(L.shape[0], gamma_cols.shape[0]) >= 2**31:
+        raise ValueError("fused_bluenoise indexes with 32-bit rows and columns")
+    if len(seeds) != 2 or not all(isinstance(s, int) and 0 <= s <= _MASK32 for s in seeds):
+        raise ValueError(f"seeds must be two host ints in [0, 2**32), got {seeds!r}")
+
+
+def _fused_kernel():
+    from bndm_tpu_torch.ops import _build
+
+    lib = _build.load("fused_bluenoise")
+    fn = lib.bndm_fused_bluenoise_f32
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
+                                           ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_bluenoise_flat(L, gamma_cols, seeds, gbn_only=False):
+    """(noise, bn, wn), each (n, M) fp32, for a LOWER-TRIANGULAR fp32 L (n, n),
+    gamma per column (M,) and two host-int ``seeds``, passed to the kernel by
+    value. ``wn`` is white noise, ``bn = L @ wn``, ``noise = bn*(1-gamma) +
+    wn*gamma`` (``bn`` for GBN). CPU tensors go to
+    :func:`fused_bluenoise_flat_plain`; ``fused_bluenoise_flat.launches``
+    counts kernel launches."""
+    _check_fused(L, gamma_cols, seeds)
+    if L.device.type == "cpu":
+        return fused_bluenoise_flat_plain(L, gamma_cols, seeds, gbn_only)
+    if L.device.type != "cuda":
+        raise ValueError(f"fused_bluenoise runs on cuda or cpu, not {L.device}")
+    n, m = L.shape[0], gamma_cols.shape[0]
+    noise, bn, wn = (torch.empty((n, m), device=L.device, dtype=torch.float32)
+                     for _ in range(3))
+    fn = _fused_kernel()
+    with torch.cuda.device(L.device):
+        stream = torch.cuda.current_stream(L.device).cuda_stream
+        err = fn(L.data_ptr(), gamma_cols.data_ptr(), noise.data_ptr(), bn.data_ptr(),
+                 wn.data_ptr(), n, m, seeds[0], seeds[1], int(gbn_only), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_bluenoise kernel launch failed with CUDA error {err}")
+    fused_bluenoise_flat.launches += 1
+    return noise, bn, wn
+
+
+fused_bluenoise_flat.launches = 0
+
+
+class FusedBlueNoise(torch.autograd.Function):
+    """K3: K2 with its gradient to gamma (the JAX package's custom JVP
+    ``_fused_flat_diff``). bn and wn do not depend on gamma, and the mix is
+    ``bn*(1-g) + wn*g``, so d noise / d g = wn - bn, from K2's own outputs;
+    GBN's noise is bn and has none. L (a fixed covariance factor) and the
+    seeds get no gradient; bn and wn are not differentiable."""
+
+    @staticmethod
+    def forward(ctx, L, gamma_cols, seeds, gbn_only):
+        noise, bn, wn = fused_bluenoise_flat(L, gamma_cols, seeds, gbn_only)
+        ctx.mark_non_differentiable(bn, wn)
+        ctx.save_for_backward(bn, wn)
+        ctx.gbn_only = gbn_only
+        return noise, bn, wn
+
+    @staticmethod
+    def backward(ctx, grad_noise, grad_bn, grad_wn):
+        bn, wn = ctx.saved_tensors
+        if ctx.gbn_only:
+            grad_gamma = torch.zeros(bn.shape[1], dtype=bn.dtype, device=bn.device)
+        else:
+            grad_gamma = (grad_noise * (wn - bn)).sum(dim=0)
+        return None, grad_gamma, None, None
+
+
+def fused_bluenoise(seeds, batch, channels, L, gamma, *, gbn_only=False, res=64):
+    """Fused [RNG -> L-matmul -> mix] for the res-64 path: (noise, noise_bn,
+    noise_wn), each (B, C, 64, 64), the contract of the unfused engine with
+    the white noise drawn by K2's generator from ``seeds``. Differentiable
+    with respect to ``gamma`` (B,) through :class:`FusedBlueNoise`; the sum
+    over a sample's C columns is ``repeat_interleave``'s own backward."""
+    if res != 64:
+        raise ValueError(f"the fused path is the res-64 path, not res {res}")
+    n = L.shape[0]
+    gamma_cols = gamma.float().repeat_interleave(channels)
+    noise, bn, wn = FusedBlueNoise.apply(L.float().contiguous(), gamma_cols, tuple(seeds),
+                                         gbn_only)
+
+    def to_img(x):  # flat (N, M) columns are (b, c); rows are pixels
+        return x.reshape(n, batch, channels).permute(1, 2, 0).reshape(batch, channels, 64, 64)
+
+    return to_img(noise), to_img(bn), to_img(wn)

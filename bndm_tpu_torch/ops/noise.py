@@ -14,19 +14,21 @@ PyTorch counterpart of ``bndm_tpu/ops/noise.py`` (the reference's
     renormalization;
   * ``uniform`` returning its noise three times.
 
-Random draws take an explicit ``torch.Generator`` on the tensor's device.
-The correlation matmul goes through :func:`apply_L`, which launches the
-hand-written kernel K1 on CUDA tensors.
+Random draws take an explicit ``torch.Generator`` on the tensor's device, or
+the caller's own draw (``white``, ``seeds``). The correlation matmul goes
+through :func:`apply_L`, which launches the hand-written kernel K1 on CUDA
+tensors; a fresh res-64 draw on CUDA goes through the fused kernel K2
+(:func:`fused_bluenoise`) under ``engine="fused"`` or ``"auto"``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from bndm_tpu_torch.ops.cuda_bluenoise import apply_L
+from bndm_tpu_torch.ops.cuda_bluenoise import apply_L, fused_bluenoise
 
 NOISE_TYPES = ("gaussian", "uniform", "gaussianBN", "gaussianRN", "GBN")
 ENGINES = ("xla", "auto", "fused")
@@ -91,8 +93,43 @@ def _mix(noise_bn, noise_wn, gamma_t, noise_type):
     return noise_bn
 
 
-def _randn(shape, like, generator):
-    return torch.randn(shape, generator=generator, device=like.device, dtype=like.dtype)
+def _fresh(shape, like, generator, white):
+    """The fresh white draw of ``shape``: the caller's ``white`` when given,
+    else standard normal from ``generator``."""
+    if white is None:
+        return torch.randn(shape, generator=generator, device=like.device, dtype=like.dtype)
+    if tuple(white.shape) != tuple(shape):
+        raise ValueError(f"white noise must be {tuple(shape)}, got {tuple(white.shape)}")
+    return white.to(like.device, like.dtype)
+
+
+def fresh_shape(shape, noise_type):
+    """Shape of the white noise :func:`get_noise` draws fresh for an input of
+    ``shape`` (B, C, H, W): the res-32 correlated path draws at 64, the
+    res-128 one four 64-tiles per sample."""
+    b, c, h, w = shape
+    if noise_type in ("gaussianBN", "gaussianRN", "GBN"):
+        if w == 32:
+            return (b, c, 64, 64)
+        if w == 128:
+            return (b * 4, c, 64, 64)
+    return tuple(shape)
+
+
+def takes_fused(x, noise_type, inplace, engine):
+    """Whether :func:`get_noise` draws through K2: a fresh res-64 correlated
+    draw of a CUDA tensor under ``engine`` "fused" or "auto" (the JAX
+    package's rule, with CUDA in place of the TPU)."""
+    return (engine in ("fused", "auto") and not inplace and x.device.type == "cuda"
+            and x.shape[-1] == 64 and noise_type in ("gaussianBN", "gaussianRN", "GBN"))
+
+
+def draw_seeds(generator):
+    """K2's two seeds as host ints, from a generator on the CPU (one on the
+    card would have to be read back, a host sync)."""
+    if generator is None or generator.device.type != "cpu":
+        raise ValueError("the fused engine takes its seeds from a CPU generator")
+    return tuple(torch.randint(0, 2**31 - 1, (2,), generator=generator).tolist())
 
 
 def get_noise(
@@ -105,41 +142,50 @@ def get_noise(
     inplace=False,
     generator: Optional[torch.Generator] = None,
     engine: str = "xla",
+    white: Optional[torch.Tensor] = None,
+    seeds: Optional[Tuple[int, int]] = None,
 ) -> NoiseResult:
     """Generate per-timestep noise of the 5 reference types.
 
     ``inplace=True`` means "use the caller's tensor ``x`` as the white-noise
     source" (the reference does so at test time, so that saved initial noise
     drives all methods identically); otherwise fresh noise is drawn from
-    ``generator``, which is then required, as it always is for ``uniform``.
+    ``generator``, or taken from ``white``: the caller's own draw, in
+    :func:`fresh_shape` (standard normal; uniform on [0, 1) for
+    ``uniform``, which always draws fresh). On the fused path, ``seeds`` are
+    K2's two host ints, else drawn from ``generator`` (on the CPU).
 
     Shapes: x (B, C, H, W) with H == W in {32, 64, 128} for the correlated
     types. L is the (4096, 4096) res-64 covariance factor on x's device.
     gamma_t is (B,). Returns ``NoiseResult(noise, noise_bn, noise_wn)``.
 
-    ``engine``: "xla" and "auto" take the unfused path through
-    :func:`apply_L` (K1 on CUDA). "fused", the in-kernel RNG + matmul + mix
-    kernel K2, is not ported yet and raises.
+    ``engine``: "xla" takes the unfused path through :func:`apply_L` (K1
+    on CUDA). "fused" and "auto" take K2, the in-kernel RNG + matmul + mix
+    kernel, where :func:`takes_fused` says so (its white noise is a
+    different stream from ``torch.randn``'s), and the unfused path
+    elsewhere, the CPU included.
     """
     if noise_type not in NOISE_TYPES:
         raise NotImplementedError(f"noise_type {noise_type!r}")
     if engine not in ENGINES:
         raise ValueError(f"engine {engine!r} is not one of {ENGINES}")
-    if engine == "fused":
-        raise NotImplementedError(
-            "engine='fused' needs the fused RNG -> L-matmul -> mix kernel K2, "
-            "which is not ported yet (ROADMAP.md, TPU kernels to port: K2)")
     b, c, h, w = x.shape
     res = w
 
+    if takes_fused(x, noise_type, inplace, engine):
+        n, bn, wn = fused_bluenoise(seeds or draw_seeds(generator), b, c, L, gamma_t,
+                                    gbn_only=(noise_type == "GBN"))
+        return NoiseResult(n.to(x.dtype), bn.to(x.dtype), wn.to(x.dtype))
+
     # 'uniform' always draws fresh (the reference's rand() ignores inplace)
-    if generator is None and (not inplace or noise_type == "uniform"):
-        raise ValueError("generator is required when inplace=False (and always "
-                         "for noise_type='uniform', which draws fresh noise)")
+    if generator is None and white is None and (not inplace or noise_type == "uniform"):
+        raise ValueError("generator is required when inplace=False and no white noise "
+                         "is given (and always for noise_type='uniform', which draws "
+                         "fresh noise)")
 
     if noise_type == "gaussian":
         if res == 128:
-            noise = x if inplace else _randn(x.shape, x, generator)
+            noise = x if inplace else _fresh(x.shape, x, generator, white)
             if not train:
                 # RNG-fairness reshuffle: split x into quadrants, flatten to
                 # (HW, C), reinterpret the buffer as (C, H, W) tiles, stitch
@@ -150,13 +196,16 @@ def get_noise(
                 tiles_s = _scramble_view(tiles_f, 64, 64)
                 noise = noise_padding(tiles_s.reshape(b, 4, c, 64, 64))
         else:
-            noise = x if inplace else _randn(x.shape, x, generator)
+            noise = x if inplace else _fresh(x.shape, x, generator, white)
         return NoiseResult(noise, noise, noise)
 
     if noise_type == "uniform":
         # the reference leaves noise_bn/noise_wn unbound on this branch; the
         # noise is returned for all three
-        u = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+        if white is None:
+            u = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+        else:
+            u = _fresh(x.shape, x, None, white)
         noise = (u * 2.0 - 1.0) * math.sqrt(3.0)
         return NoiseResult(noise, noise, noise)
 
@@ -165,7 +214,7 @@ def get_noise(
         # tile 2x2 up to 64, correlate, crop back
         x64 = torch.cat([x, x], dim=-2)
         x64 = torch.cat([x64, x64], dim=-1)
-        noise = x64 if inplace else _randn(x64.shape, x, generator)
+        noise = x64 if inplace else _fresh(x64.shape, x, generator, white)
         noise_wn = noise
         nf = _flatten_pix(noise)
         noise_bn = _unflatten_pix(apply_L(L, nf), 64, 64)
@@ -175,7 +224,7 @@ def get_noise(
         )
 
     if res == 64:
-        noise = x if inplace else _randn(x.shape, x, generator)
+        noise = x if inplace else _fresh(x.shape, x, generator, white)
         noise_wn = noise
         nf = _flatten_pix(noise)
         noise_bn = _unflatten_pix(apply_L(L, nf), 64, 64)
@@ -188,7 +237,7 @@ def get_noise(
         if inplace:
             tiles = _split_quadrants(x)
         else:
-            tiles = _randn((b * 4, c, 64, 64), x, generator)
+            tiles = _fresh((b * 4, c, 64, 64), x, generator, white)
         tiles_f = _flatten_pix(tiles)
         noise_wn = noise_padding(_scramble_view(tiles_f, 64, 64).reshape(b, 4, c, 64, 64))
         bn_tiles = _unflatten_pix(apply_L(L, tiles_f), 64, 64)

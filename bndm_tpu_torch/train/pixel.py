@@ -1,15 +1,34 @@
-"""Pixel-space IADB/BNDM training configuration.
+"""Pixel-space IADB/BNDM training (the reference's main workload).
 
-Counterpart of ``bndm_tpu/train/pixel.py``. The serving slice needs only
-``TrainConfig`` (the CLI's ``build`` derives ``two_head`` from it); the train
-step, its optimizers and the trainer come with the training slice
-(ROADMAP.md, queue 1 item 5).
+Counterpart of ``bndm_tpu/train/pixel.py``: one train step holds timestep
+sampling, the noise engine, the optional batch-OT remap, the UNet forward and
+backward, and BOTH optimizers (model AdamW, then AdamW on the learnable
+(tau, s, e) gamma parameters with a clamp after the step). One loss is
+backpropagated into the model and into (tau, s, e): the gradient reaches the
+schedule through the loss weights and through the noise mix, on CUDA through
+K3 (:class:`~bndm_tpu_torch.ops.cuda_bluenoise.FusedBlueNoise`).
+
+Parameters stay fp32; the modules compute in their configured dtype (bf16
+from the CLI). Randomness comes from a key, a tuple of ints such as
+(seed, step), the counterpart of a folded ``jax.random`` key.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from bndm_tpu_torch.cli.common import make_generator
+from bndm_tpu_torch.ops.noise import draw_seeds, fresh_shape, get_noise, takes_fused
+from bndm_tpu_torch.ops.schedules import alpha_schedule, gamma_param_ranges, gamma_schedule
+from bndm_tpu_torch.train.losses import antithetic_timesteps, bndm_loss, iadb_loss, remap_batch
+from bndm_tpu_torch.utils.image import superres_condition
+
+# optax.adamw's default; torch.optim.AdamW's own default is 1e-2
+WEIGHT_DECAY = 1e-4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,10 +50,11 @@ class TrainConfig:
     grad_clip: Optional[float] = None
     remap: bool = False
     conditional: bool = False  # superres: concat conditioning (in_channels 6)
-    # "xla" and "auto" take the unfused noise path (K1 on CUDA); the fused
-    # kernel K2 that "auto" selects on the TPU comes with training
+    # "auto": the fused kernel K2 where eligible (a fresh res-64 draw on
+    # CUDA; ops/noise.py::takes_fused), the unfused path elsewhere. "xla"
+    # keeps the torch.randn stream everywhere.
     noise_engine: str = "auto"
-    remat: bool = False
+    remat: bool = False  # recompute the UNet's activations in the backward
 
     @property
     def two_head(self):
@@ -42,3 +62,160 @@ class TrainConfig:
             self.noise_type in ("gaussianBN", "gaussianRN")
             and self.out_channel == 2 * self.data_channels
         )
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The whole train state; the step updates it in place."""
+
+    model: torch.nn.Module
+    opt: torch.optim.Optimizer
+    sched_params: torch.Tensor  # (3,) = (tau, s, e), fp32, a leaf with grad
+    sched_opt: torch.optim.Optimizer
+    step: int = 0
+
+
+def _make_optimizer(cfg: TrainConfig, params):
+    """optax.adam / optax.adamw(lr) (the gradient clip, if any, is applied by
+    the step before this optimizer steps)."""
+    if cfg.optimizer_type == "adam":
+        return torch.optim.Adam(params, lr=cfg.lr, eps=1e-8)
+    if cfg.optimizer_type == "adamw":
+        return torch.optim.AdamW(params, lr=cfg.lr, eps=1e-8, weight_decay=WEIGHT_DECAY)
+    raise KeyError(cfg.optimizer_type)
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads, max_norm):
+    """optax.clip_by_global_norm in place: the grads are left as they are
+    when their global norm is below ``max_norm``, else scaled by
+    ``max_norm / norm`` (torch's clip_grad_norm_ divides by norm + 1e-6
+    instead). The decision stays on the device: no host sync."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+
+
+def init_sched_params(generator, cfg: TrainConfig, device=None):
+    """Uniform init inside the per-schedule ranges (the defaults exactly when
+    they are not optimized)."""
+    ranges = gamma_param_ranges(cfg.scheduler_gamma, cfg.optimize_scheduler_param,
+                                cfg.gamma_defaults)
+    lo = torch.tensor([r[0] for r in ranges], dtype=torch.float32)
+    hi = torch.tensor([r[1] for r in ranges], dtype=torch.float32)
+    u = torch.rand(3, generator=generator)
+    return (lo + (hi - lo) * u).to(device)
+
+
+def make_train_step(cfg: TrainConfig, L):
+    """Build the train step: ``train_step(state, batch01, key) -> metrics``.
+
+    ``batch01``: images in [0, 1] on the model's device (the loader's
+    output); ``x1 = batch01*2 - 1`` happens here. ``key`` is a tuple of ints
+    (e.g. (seed, step)) from which the step draws t and its noise on the
+    host: K2's two seeds where the fused path runs, else white noise on the
+    device. The step updates ``state`` in place; ``metrics`` are device
+    tensors, read by the caller when it wants them. Returns
+    ``(train_step, init_state)``.
+    """
+    ranges = gamma_param_ranges(cfg.scheduler_gamma, cfg.optimize_scheduler_param,
+                                cfg.gamma_defaults)
+    clamp_lo = torch.tensor([r[0] for r in ranges], dtype=torch.float32, device=L.device)
+    clamp_hi = torch.tensor([r[1] for r in ranges], dtype=torch.float32, device=L.device)
+    correlated = cfg.noise_type in ("gaussianBN", "gaussianRN", "GBN")
+
+    def loss_fn(model, sched_params, x1, t, noise):
+        """The step's loss. ``noise`` is its draw: K2's two host-int seeds
+        (a tuple) or the white noise the unfused path would draw (a tensor
+        of ``fresh_shape``)."""
+        alpha = alpha_schedule(t, cfg.nb_steps, cfg.scheduler_alpha, cfg.alpha_param)
+        gamma = gamma_schedule(t, cfg.nb_steps, cfg.scheduler_gamma, sched_params)
+        draw = {"seeds": noise} if isinstance(noise, tuple) else {"white": noise}
+        r = get_noise(x1, L, gamma, noise_type=cfg.noise_type, train=True, inplace=False,
+                      engine=cfg.noise_engine, **draw)
+        x0 = r.noise
+        x1_paired = x1[remap_batch(x0, x1)] if cfg.remap else x1
+        a = alpha.reshape(-1, 1, 1, 1)
+        x_alpha = a * x0 + (1.0 - a) * x1_paired  # x1 = data, x0 = noise
+        inp = x_alpha
+        if cfg.conditional:
+            inp = torch.cat([x_alpha, superres_condition(x1_paired)], dim=1)
+        if cfg.remat:
+            d = checkpoint(model, inp, alpha, use_reentrant=False)
+        else:
+            d = model(inp, alpha)
+        alpha_prev = alpha_schedule(t - 1.0, cfg.nb_steps, cfg.scheduler_alpha, cfg.alpha_param)
+        gamma_prev = gamma_schedule(t - 1.0, cfg.nb_steps, cfg.scheduler_gamma, sched_params)
+        if correlated and cfg.noise_type != "GBN":
+            return bndm_loss(d, x1_paired, x0, r.noise_bn, r.noise_wn,
+                             alpha, alpha_prev, gamma, gamma_prev, cfg.two_head)
+        return iadb_loss(d, x1_paired, x0)
+
+    def draw_noise(x1, key):
+        """The step's noise draw (see ``loss_fn``), from ``key``."""
+        if takes_fused(x1, cfg.noise_type, False, cfg.noise_engine):
+            return draw_seeds(make_generator("cpu", *key, 1))
+        shape = fresh_shape(x1.shape, cfg.noise_type)
+        gen = make_generator(x1.device, *key, 2)
+        if cfg.noise_type == "uniform":
+            return torch.rand(shape, generator=gen, device=x1.device)
+        return torch.randn(shape, generator=gen, device=x1.device)
+
+    def train_step(state: TrainState, batch01, key):
+        x1 = batch01.to(L.device, torch.float32) * 2.0 - 1.0
+        t = antithetic_timesteps(make_generator("cpu", *key), x1.shape[0], cfg.nb_steps)
+        t = t.to(L.device, torch.float32)
+        noise = draw_noise(x1, key)
+        state.opt.zero_grad(set_to_none=True)
+        state.sched_opt.zero_grad(set_to_none=True)
+        loss = loss_fn(state.model, state.sched_params, x1, t, noise)
+        loss.backward()
+        apply_gradients(state)
+        sp = state.sched_params.detach().clone()
+        return {"loss": loss.detach(), "sched_tau": sp[0], "sched_s": sp[1], "sched_e": sp[2]}
+
+    def apply_gradients(state: TrainState):
+        """Both optimizers on the gradients in ``.grad``: the clip (model
+        only), the model's step, the schedule's step, then the clamp."""
+        if cfg.grad_clip is not None:
+            grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+            clip_by_global_norm_(grads, cfg.grad_clip)
+        state.opt.step()
+        if state.sched_params.grad is None:  # a schedule without (tau, s, e)
+            state.sched_params.grad = torch.zeros_like(state.sched_params)
+        state.sched_opt.step()
+        with torch.no_grad():
+            state.sched_params.copy_(torch.clamp(state.sched_params, clamp_lo, clamp_hi))
+        state.step += 1
+
+    def init_state(model, generator):
+        sched_params = init_sched_params(generator, cfg, L.device).requires_grad_()
+        return TrainState(
+            model=model,
+            opt=_make_optimizer(cfg, model.parameters()),
+            sched_params=sched_params,
+            sched_opt=torch.optim.AdamW([sched_params], lr=cfg.sched_lr, eps=1e-8,
+                                        weight_decay=WEIGHT_DECAY),
+        )
+
+    # exposed for tests (parity of the loss, its gradients and the update)
+    train_step.loss_fn = loss_fn
+    train_step.apply_gradients = apply_gradients
+    return train_step, init_state
+
+
+class PixelTrainer:
+    """Convenience wrapper: model + config + L-matrix -> stateful trainer.
+    The model's parameters are trained as they are (fp32); ``L`` moves to
+    the model's device."""
+
+    def __init__(self, model, cfg: TrainConfig, L, seed=0):
+        self.model = model
+        self.cfg = cfg
+        device = next(model.parameters()).device
+        self.L = torch.as_tensor(L, dtype=torch.float32).to(device).contiguous()
+        self.train_step, init_state = make_train_step(cfg, self.L)
+        self.state = init_state(model, make_generator("cpu", seed))
+
+    def step(self, batch01, key):
+        return self.train_step(self.state, batch01, key)

@@ -3,28 +3,41 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path at full width with random seeded weights and
-holds every hand-written kernel against its plain PyTorch version:
+Drives the port's serving and training paths at full width with random
+seeded weights and holds every hand-written kernel against its plain
+PyTorch version:
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every kernel under bndm_tpu_torch/csrc, one nvcc each, at once;
   3. K1 (tri_matmul) against fp64 and its plain version at M = 12, 7, 1500,
      on a random lower-triangular L and on the generated blue-noise L, with
      its time beside the plain version's, torch.matmul's and the bound;
-  4. the noise engine (gaussianBN, inplace) at res 32, 64, 128 on CUDA and
+  4. K2 (fused_bluenoise_flat) against its plain version and fp64 at
+     M = 192, 7, 1500 on both L, the exact mix, the white noise's moments,
+     determinism, and K3's gamma gradient; its time beside the plain
+     version's, the unfused torch sequence's and the bound;
+  5. the noise engine (gaussianBN, inplace) at res 32, 64, 128 on CUDA and
      on the CPU, all three outputs compared;
-  5. one full-width res-64 UNet forward in fp32 (TF32 off), CUDA vs CPU;
-  6. super-res serving: the CLI with the flags of
+  6. one full-width res-64 UNet forward in fp32 (TF32 off), CUDA vs CPU;
+  7. super-res serving: the CLI with the flags of
      scripts/sampling/iadb_church_superres_test.sh (res 128, 116.3M UNet,
      250 steps) on 4 procedural images; K1 must launch once per request;
-  7. unconditional serving: the CLI with the flags of
+  8. unconditional serving: the CLI with the flags of
      scripts/sampling/cat_res64_test.sh (res 64, two-head 113.7M UNet, 250
      steps) on 2 batches of 16;
-  8. trace: one bf16 UNet forward of each branch at its served shape, its
-     host-clock time beside the device's busy time and top kernels
-     (torch.profiler);
-  9. one JSON line {"kernels": [...]}, then the last line
+  9. training: the CLI with the flags of
+     scripts/training/iadb_bn_cat_res64.sh (gaussianBN, two-head 113.7M
+     UNet, batch 64) for 8 steps on 512 procedural images, then a resumed
+     ninth step; K2 must launch once per step and K1 not at all; one step
+     traced (torch.profiler);
+ 10. trace: one bf16 UNet forward of each served branch at its shape, its
+     host-clock time beside the device's busy time and top kernels;
+ 11. one JSON line {"kernels": [...]}, then the last line
      {"ok": true, "device": {...}}.
+
+Every path is driven with the kernels' launch counts set to 0 just before
+it and read just after; launches made to compare a kernel with its plain
+version do not count.
 
 Any failed phase ends the run with exit code 1 and no result line. It needs
 CUDA and the rest of the repository beside it; it works in a temporary
@@ -101,6 +114,31 @@ def k1_bound(n, m, peak_bytes, peak_flops):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
+def k2_bound(n, m, peak_bytes, peak_flops):
+    """Least time for K2: the triangle of L and gamma read once, noise, bn
+    and wn written once; n(n+1)/2 * m multiply-adds and the mix's three
+    operations per element (the generator's integer work is not counted)."""
+    nbytes = 4 * (n * (n + 1) // 2 + m + 3 * n * m)
+    flops = n * (n + 1) * m + 3 * n * m
+    t_b, t_o = nbytes / peak_bytes, flops / peak_flops
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def reset_launches():
+    """Set every kernel's launch count to 0 (just before a path is driven)."""
+    from bndm_tpu_torch.ops.cuda_bluenoise import fused_bluenoise_flat, tri_matmul
+
+    tri_matmul.launches = 0
+    fused_bluenoise_flat.launches = 0
+
+
+def read_launches():
+    from bndm_tpu_torch.ops.cuda_bluenoise import fused_bluenoise_flat, tri_matmul
+
+    return {"tri_matmul": tri_matmul.launches,
+            "fused_bluenoise": fused_bluenoise_flat.launches}
+
+
 def time_ms(torch, fn, iters, flush):
     """Median device time of ``fn`` over ``iters`` launches, each timed by
     its own CUDA events with the L2 cache flushed before it (a served
@@ -145,6 +183,51 @@ def watched_sampler(record):
         yield
     finally:
         iadb.sample_iadb = real
+
+
+def device_kernels(prof):
+    """The kernels a torch.profiler run saw on the card: CUDA events other
+    than the GPU-side ranges of user annotations (such as the optimizer's
+    step), which would count idle gaps as busy."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+@contextlib.contextmanager
+def watched_trainer(record, traced=None):
+    """Record the seconds (host clock, synchronised) and the model's
+    parameter count of every train step the CLI takes. With ``traced`` (a
+    list), each step runs under torch.profiler instead and its CUDA kernel
+    events are appended there."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bndm_tpu_torch.train import pixel
+
+    real = pixel.PixelTrainer.step
+
+    def watched(self, batch01, key):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if traced is None:
+            metrics = real(self, batch01, key)
+            torch.cuda.synchronize()
+        else:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                metrics = real(self, batch01, key)
+                torch.cuda.synchronize()
+            traced.extend(device_kernels(prof))
+        record.append((time.perf_counter() - t0,
+                       sum(p.numel() for p in self.model.parameters())))
+        return metrics
+
+    pixel.PixelTrainer.step = watched
+    try:
+        yield
+    finally:
+        pixel.PixelTrainer.step = real
 
 
 def write_ckpt(torch, cfg, path, seed):
@@ -208,6 +291,99 @@ def phase_k1(torch, L_blue, peak, flush):
     return rows, worst_plain, worst_fp64
 
 
+def phase_k2(torch, L_blue, peak, flush):
+    """K2 against its plain version and fp64, the exact mix, the moments,
+    determinism and K3's gradient rule; then its times at the training
+    shape M = 192 (batch 64, 3 channels) and at M = 1500."""
+    from bndm_tpu_torch.ops.cuda_bluenoise import (FusedBlueNoise, fused_bluenoise,
+                                                   fused_bluenoise_flat,
+                                                   fused_bluenoise_flat_plain)
+
+    n = L_blue.shape[0]
+    g = torch.Generator().manual_seed(10)
+    L_rand = torch.tril(torch.randn(n, n, generator=g) * 0.02)
+    L_rand.fill_diagonal_(1.0)
+    worst = {"wn": 0.0, "bn_plain": 0.0, "bn_fp64": 0.0}
+    for lname, L in (("random", L_rand.cuda()), ("blue", L_blue)):
+        for m in (192, 7, 1500):
+            gamma = torch.rand(m, generator=g).cuda()
+            seeds = (1000 + m, 77)
+            noise, bn, wn = fused_bluenoise_flat(L, gamma, seeds)
+            torch.cuda.synchronize()
+            _, p_bn, p_wn = fused_bluenoise_flat_plain(L, gamma, seeds)
+            ref = L.double() @ wn.double()
+            errs = {"wn": (wn - p_wn).abs().max().item(),
+                    "bn_plain": (bn - p_bn).abs().max().item(),
+                    "bn_fp64": (bn.double() - ref).abs().max().item()}
+            ok = (torch.allclose(wn, p_wn, rtol=1e-5, atol=1e-5)
+                  and torch.allclose(bn, p_bn, rtol=TOL, atol=TOL)
+                  and torch.allclose(bn.double(), ref, rtol=TOL, atol=TOL))
+            exact = torch.equal(noise, bn * (1.0 - gamma[None, :]) + wn * gamma[None, :])
+            gbn = fused_bluenoise_flat(L, gamma, seeds, True)
+            gbn_ok = all(torch.equal(a, b) for a, b in zip(gbn, (bn, bn, wn)))
+            log(f"K2 L={lname} M={m}: max|err| wn vs plain {errs['wn']:.3e} (1e-5), bn vs "
+                f"plain {errs['bn_plain']:.3e}, vs fp64 {errs['bn_fp64']:.3e} ({TOL}); mix "
+                f"{'exact' if exact else 'NOT exact'}; GBN {'ok' if gbn_ok else 'FAIL'}")
+            check(ok, f"K2 disagrees at L={lname} M={m}")
+            check(exact, f"K2's mix is not exact at L={lname} M={m}")
+            check(gbn_ok, f"K2's GBN output is not bn at L={lname} M={m}")
+            worst = {k: max(v, errs[k]) for k, v in worst.items()}
+            if m >= 192:  # 4096 * 7 values are too few for the 0.02 bound
+                mean, var = wn.mean().item(), wn.var().item()
+                log(f"K2 L={lname} M={m}: wn mean {mean:+.5f}, variance {var:.5f}")
+                check(abs(mean) < 0.02 and abs(var - 1.0) < 0.02,
+                      f"K2's white noise is not standard normal at M={m}")
+
+    gamma = torch.rand(192, generator=g).cuda()
+    a, b = fused_bluenoise_flat(L_blue, gamma, (3, 4)), fused_bluenoise_flat(L_blue, gamma, (3, 4))
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    other = [fused_bluenoise_flat(L_blue, gamma, s)[2] for s in ((3, 5), (4, 4))]
+    differ = not any(torch.equal(a[2], w) for w in other)
+    log(f"K2 determinism: same seeds same bits {same}, other seeds other bits {differ}")
+    check(same and differ, "K2 is not deterministic in its seeds")
+
+    # K3 at the training shape: batch 64, 3 channels
+    gamma = torch.rand(64, generator=g).cuda().requires_grad_()
+    noise, bn, wn = fused_bluenoise((5, 6), 64, 3, L_blue, gamma)
+    (grad,) = torch.autograd.grad((noise ** 2).sum(), gamma)
+    want = (2.0 * noise * (wn - bn)).sum(dim=(1, 2, 3)).detach()
+    grad_err = (grad - want).abs().max().item()
+    grad_ok = torch.allclose(grad, want, rtol=1e-5, atol=1e-3)
+    cols = gamma.detach().repeat_interleave(3).requires_grad_()
+    out, obn, own = FusedBlueNoise.apply(L_blue, cols, (5, 6), False)
+    tan_err = 0.0
+    for row in (0, 2047, 4095):
+        sel = torch.zeros_like(out)
+        sel[row] = 1.0
+        (tan,) = torch.autograd.grad(out, cols, sel, retain_graph=True)
+        tan_err = max(tan_err, (tan - (own - obn)[row]).abs().max().item())
+    log(f"K3: grad of sum(noise^2) vs 2*sum(noise*(wn-bn)) max|err| {grad_err:.3e} "
+        f"(rtol 1e-5, atol 1e-3, |grad| up to {want.abs().max().item():.1f}); tangent vs wn-bn "
+        f"max|err| {tan_err:.3e} (1e-6)")
+    check(grad_ok and tan_err <= 1e-6, "K3's gamma gradient disagrees")
+
+    rows = []
+    for m in (192, 1500):
+        gamma = torch.rand(m, generator=g).cuda()
+        iters = 30 if m < 1000 else 10
+
+        def unfused():  # what the unfused engine runs on the card, in torch
+            w = torch.randn(n, m, device="cuda")
+            return torch.matmul(L_blue, w) * (1.0 - gamma) + w * gamma
+
+        ms = time_ms(torch, lambda: fused_bluenoise_flat(L_blue, gamma, (3, 4)), iters, flush)
+        plain_ms = time_ms(torch, lambda: fused_bluenoise_flat_plain(L_blue, gamma, (3, 4)),
+                           iters, flush)
+        unfused_ms = time_ms(torch, unfused, iters, flush)
+        bound_ms, bound_by = k2_bound(n, m, *peak)
+        rows.append({"m": m, "ms": ms, "plain_ms": plain_ms, "unfused_torch_ms": unfused_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by})
+        log(f"K2 M={m} times (median, L2 flushed): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"unfused torch.randn + torch.matmul + mix {unfused_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+    return rows, worst, {"grad_max_abs_err": grad_err, "tangent_max_abs_err": tan_err}
+
+
 def phase_noise(torch, L_blue):
     from bndm_tpu_torch.ops.noise import get_noise
 
@@ -251,7 +427,6 @@ def phase_superres(torch, work, bn_dir):
     from bndm_tpu_torch.cli.iadb_bn import parse_args
     from bndm_tpu_torch.data.imagefolder import make_procedural_folder
     from bndm_tpu_torch.models.unet2d import unet_config_for_res
-    from bndm_tpu_torch.ops.cuda_bluenoise import tri_matmul
 
     # scripts/sampling/iadb_church_superres_test.sh:5
     argv = ["--dataset=church_res128", "--res=128", "--batch_size=200", "--train_or_test=test",
@@ -265,13 +440,16 @@ def phase_superres(torch, work, bn_dir):
                           os.path.join(out_dir, "model.ckpt"), seed=4)
     log(f"super-res: {n_params} parameters (res-128 conditional UNet)")
     record = []
-    tri_matmul.launches = 0
+    reset_launches()
     with watched_sampler(record):
         text = run_cli(argv)
-    launches = tri_matmul.launches
-    log(f"super-res: K1 launches {launches} for {len(record)} requests")
+    counts = read_launches()
+    launches = counts["tri_matmul"]
+    log(f"super-res: K1 launches {launches} for {len(record)} requests, K2 launches "
+        f"{counts['fused_bluenoise']}")
     check(len(record) == 4, f"expected 4 super-res requests, sampled {len(record)}")
     check(launches == len(record), "K1 must launch once per super-res request")
+    check(counts["fused_bluenoise"] == 0, "K2 is not on the serving path")
     check(all(f and s == (1, 3, 128, 128) for s, f, _ in record), f"bad samples: {record}")
     m = re.search(r"ssim: (\S+), psnr: (\S+), l2: (\S+), l1: (\S+)", text)
     check(m is not None and all(math.isfinite(float(v.rstrip(","))) for v in m.groups()),
@@ -285,7 +463,6 @@ def phase_uncond(torch, work, bn_dir):
     from bndm_tpu_torch.cli.common import output_folder_name
     from bndm_tpu_torch.cli.iadb_bn import parse_args
     from bndm_tpu_torch.models.unet2d import unet_config_for_res
-    from bndm_tpu_torch.ops.cuda_bluenoise import tri_matmul
 
     # scripts/sampling/cat_res64_test.sh:5, at 2 batches of 16 (all saved)
     argv = ["--dataset=cat_res64", "--res=64", "--batch_size=16", "--train_or_test=test",
@@ -297,17 +474,107 @@ def phase_uncond(torch, work, bn_dir):
                           os.path.join(out_dir, "model.ckpt"), seed=5)
     log(f"unconditional: {n_params} parameters (res-64 two-head UNet)")
     record = []
-    tri_matmul.launches = 0
+    reset_launches()
     with watched_sampler(record):
         text = run_cli(argv)
-    log(f"unconditional: K1 launches {tri_matmul.launches} (the branch draws plain white x0)")
+    counts = read_launches()
+    log(f"unconditional: K1 launches {counts['tri_matmul']}, K2 launches "
+        f"{counts['fused_bluenoise']} (the branch draws plain white x0)")
     check(len(record) == 2 and all(f and s == (16, 3, 64, 64) for s, f, _ in record),
           f"bad samples: {record}")
     m = re.search(r"gallery: (\d+) images written", text)
     check(m is not None and int(m.group(1)) == 32, "expected 32 images written")
     check(n_params == 113_676_678, "unconditional UNet is not the published 113.7M config")
-    return {"launches": tri_matmul.launches, "samples_per_s": [s[0] / sec for s, _, sec in record],
-            "params": n_params}
+    return {"launches": counts["tri_matmul"],
+            "samples_per_s": [s[0] / sec for s, _, sec in record], "params": n_params}
+
+
+def phase_train(torch, work, bn_dir):
+    """The training CLI at full width: 8 steps at batch 64, then a resumed
+    ninth step, traced. Returns K2's launches and the step times."""
+    import numpy as np
+
+    from bndm_tpu_torch.cli.common import output_folder_name
+    from bndm_tpu_torch.cli.iadb_bn import parse_args
+    from bndm_tpu_torch.data.imagefolder import make_procedural_folder
+
+    bs, steps = 64, 8
+    # scripts/training/iadb_bn_cat_res64.sh:7, one epoch of 512 images
+    argv = ["--dataset=cat_res64", "--res=64", f"--batch_size={bs}", "--epochs=1",
+            "--train_or_test=train", "--lr=0.0001", "--grad_clip=1.0",
+            "--noise_type=gaussianBN", "--scheduler_gamma=sigmoid", "--scheduler_param=1000",
+            "--out_channel=6", "--device=cuda", f"--data_root={work}/data",
+            f"--bluenoise_dir={bn_dir}"]
+    make_procedural_folder(os.path.join(work, "data", "cat_res64"), n=bs * steps, res=64, seed=7)
+    os.makedirs(os.path.join(work, "train"))
+    with contextlib.chdir(os.path.join(work, "train")):
+        run = os.path.abspath(output_folder_name(parse_args(argv)))
+        record = []
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with watched_trainer(record):
+            text = run_cli(argv + [f"--max_steps={steps}"])
+        counts = read_launches()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        losses = np.atleast_1d(np.loadtxt(os.path.join(run, "losses.txt")))
+        sched = np.loadtxt(os.path.join(run, "scheduler_params.txt"))
+        log(f"train: {len(record)} steps of batch {bs}, {record[0][1] if record else 0} "
+            f"parameters; K2 launches {counts['fused_bluenoise']}, K1 launches "
+            f"{counts['tri_matmul']}; losses {losses.tolist()}; scheduler params "
+            f"{sched.tolist()}; peak device memory {peak_gib:.2f} GiB")
+        check(len(record) == steps and all(p == 113_676_678 for _, p in record),
+              f"expected {steps} steps of the 113.7M UNet, got {record}")
+        check(counts["fused_bluenoise"] == steps, "K2 must launch once per train step")
+        check(counts["tri_matmul"] == 0, "K1 is not on the res-64 training path")
+        check(losses.shape == (steps,) and bool(np.isfinite(losses).all()),
+              "losses.txt must hold one finite loss per step")
+        check(np.allclose(sched, [1000.0, 0.0, 3.0], rtol=0, atol=1e-6),
+              "the published run's scheduler params must stay (1000, 0, 3)")
+        check(re.search(r"^epoch 0: mean loss ", text, re.M) is not None, "no epoch line")
+        for f in ("model.npz", f"checkpoints/{steps}/state.pt", "losses.png",
+                  "scheduler_params.png", "logs/metrics.jsonl"):
+            check(os.path.exists(os.path.join(run, f)), f"the run folder lacks {f}")
+
+        # resume from the full-state checkpoint and take one more step, traced
+        resumed, kern = [], []
+        reset_launches()
+        with watched_trainer(resumed, traced=kern):
+            text = run_cli(argv + [f"--max_steps={steps + 1}", "--resume_training"])
+        counts = read_launches()
+        after = np.atleast_1d(np.loadtxt(os.path.join(run, "losses.txt")))
+        log(f"train resume: K2 launches {counts['fused_bluenoise']}, losses {after.tolist()}")
+        check(f"resumed full state at step {steps}" in text, "the resume did not restart at step 8")
+        check(len(resumed) == 1 and counts["fused_bluenoise"] == 1 and after.shape == (1,)
+              and bool(np.isfinite(after).all()), "the resumed run must take one finite step")
+        check(os.path.exists(os.path.join(run, f"checkpoints/{steps + 1}/state.pt")),
+              "the resumed run saved no checkpoint")
+
+    secs = [s for s, _ in record]
+    steady = bs * (steps - 1) / sum(secs[1:])
+    log(f"train: first step {secs[0]:.3f} s; steps 2-{steps}: {steady:.2f} images/s "
+        f"(host clock, synchronised; per step {[round(s, 4) for s in secs[1:]]})")
+    if kern:
+        busy_ms = _busy_us([(e.time_range.start, e.time_range.end) for e in kern]) / 1e3
+        mean_ms = 1e3 * sum(secs[1:]) / (steps - 1)
+        k2_us = sum(e.time_range.elapsed_us() for e in kern if "fused_bluenoise" in e.name)
+        log(f"trace train step (bs {bs}, resumed step): device busy {busy_ms:.2f} ms, "
+            f"{100 * busy_ms / mean_ms:.1f} % of the untraced mean step {mean_ms:.2f} ms; "
+            f"{len(kern)} kernels; K2 {k2_us / 1e3:.4f} ms")
+        _log_top(kern)
+    else:
+        log("trace train step: device time not measured (the profiler saw no CUDA kernels)")
+    return {"launches": steps, "first_step_s": secs[0], "images_per_s": steady,
+            "step_s": secs, "peak_gib": peak_gib}
+
+
+def _log_top(kern, k=5):
+    """The ``k`` kernels that take the most device time, with their share."""
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    total = sum(by_name.values())
+    for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:k]:
+        log(f"  {100 * us / total:5.1f} %  {kname[:110]}")
 
 
 def _busy_us(intervals):
@@ -325,7 +592,6 @@ def phase_trace(torch):
     its served shape, in bf16 as the CLI serves it. The host-clock time per
     forward is taken without the profiler (which slows dispatch); the
     device's busy time and the kernels come from torch.profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from bndm_tpu_torch.models.unet2d import UNet2D, unet_config_for_res
@@ -350,22 +616,16 @@ def phase_trace(torch):
                 for _ in range(n):
                     model(x, t)
                 torch.cuda.synchronize()
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        kern = device_kernels(prof)
         if not kern:
             log(f"trace {name}: forward {wall_ms:.2f} ms (host clock); device time not "
                 "measured (the profiler saw no CUDA kernels)")
             continue
         busy_ms = _busy_us([(e.time_range.start, e.time_range.end) for e in kern]) / n / 1e3
-        by_name = {}
-        for e in kern:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-        total = sum(by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         log(f"trace {name} (bs {bs}, res {res}, bf16): forward {wall_ms:.2f} ms (host clock), "
             f"device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %), "
             f"{len(kern) / n:.0f} kernels per forward")
-        for kname, us in top:
-            log(f"  {100 * us / total:5.1f} %  {kname[:110]}")
+        _log_top(kern)
         del model
 
 
@@ -410,23 +670,28 @@ def main():
         log(f"blue-noise L generated and cached in {time.time() - t0:.1f}s")
         flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB > L2
 
-        # 3. K1
+        # 3-4. K1, K2 and K3
         rows, err_plain, err_fp64 = phase_k1(torch, L_blue, peak, flush)
+        k2_rows, k2_err, k3_err = phase_k2(torch, L_blue, peak, flush)
         del flush
-        # 4-5. noise engine and UNet, CUDA vs CPU
+        # 5-6. noise engine and UNet, CUDA vs CPU
         phase_noise(torch, L_blue)
         phase_unet(torch)
-        # 6-7. the served paths
+        # 7-8. the served paths
         sr = phase_superres(torch, work, bn_dir)
         log(f"super-res: samples/s per request (sampler only, synchronised) "
             f"{sr['samples_per_s']}")
         un = phase_uncond(torch, work, bn_dir)
         log(f"unconditional: samples/s per batch (sampler only, synchronised) "
             f"{un['samples_per_s']}")
-        # 8. where a served step's time goes
+        # 9. the training path
+        tr = phase_train(torch, work, bn_dir)
+        torch.cuda.empty_cache()
+        # 10. where a served step's time goes
         phase_trace(torch)
 
     main_row = next(r for r in rows if r["m"] == 12)  # the super-res request's shape
+    k2_row = next(r for r in k2_rows if r["m"] == 192)  # the train step's shape
     kernels = [{
         "name": "tri_matmul",
         "route": "cuda",
@@ -443,7 +708,30 @@ def main():
         "library_ms": main_row["library_ms"],
         "shape": "L (4096, 4096) @ W (4096, 12)",
         "by_m": rows,
+    }, {
+        "name": "fused_bluenoise",
+        "route": "cuda",
+        "source": "bndm_tpu_torch/csrc/fused_bluenoise.cu",
+        "replaces": "bndm_tpu/ops/pallas_bluenoise.py:205",
+        "launches": tr["launches"],
+        "max_abs_err": max(k2_err["wn"], k2_err["bn_plain"]),
+        "max_abs_err_wn": k2_err["wn"],
+        "max_abs_err_fp64": k2_err["bn_fp64"],
+        "ms": k2_row["ms"],
+        "kernel_ms": k2_row["ms"],
+        "plain_ms": k2_row["plain_ms"],
+        "bound_ms": k2_row["bound_ms"],
+        "bound_by": k2_row["bound_by"],
+        "library_ms": None,  # no single PyTorch call draws, correlates and mixes
+        "unfused_torch_ms": k2_row["unfused_torch_ms"],
+        "unfused_torch": "torch.randn + torch.matmul + the mix, three calls",
+        "shape": "L (4096, 4096), gamma (192,) -> noise, bn, wn (4096, 192)",
+        "gradient": dict(k3_err, name="FusedBlueNoise (K3, replaces "
+                         "bndm_tpu/ops/pallas_bluenoise.py:243)"),
+        "by_m": k2_rows,
     }]
+    log(f"train: {tr['images_per_s']:.2f} images/s over steps 2-8, first step "
+        f"{tr['first_step_s']:.3f} s (batch 64)")
     log(f"wall {time.time() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -216,9 +216,11 @@ def test_noise_argument_rules():
         tnoise.get_noise(x, None, torch.zeros(2), noise_type="uniform", inplace=True)
     with pytest.raises(ValueError, match="generator is required"):
         tnoise.get_noise(x, None, torch.zeros(2), noise_type="gaussian")
-    with pytest.raises(NotImplementedError, match="K2"):
-        tnoise.get_noise(x, None, torch.zeros(2), noise_type="gaussianBN", engine="fused",
+    with pytest.raises(ValueError, match="engine"):
+        tnoise.get_noise(x, None, torch.zeros(2), noise_type="gaussianBN", engine="pallas",
                          generator=torch.Generator())
+    with pytest.raises(ValueError, match="CPU generator"):  # K2's seeds are host ints
+        tnoise.draw_seeds(None)
     with pytest.raises(NotImplementedError):
         tnoise.get_noise(x, None, torch.zeros(2), noise_type="pink", inplace=True)
 
