@@ -88,7 +88,9 @@ def parse_args(argv=None):
     p.add_argument("--remat", action="store_true")
     p.add_argument("--conv_int8", action="store_true")
     p.add_argument("--int8_mode", type=str, default="static", choices=["dynamic", "static"])
-    p.add_argument("--profile_dir", type=str, default=None)
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler Chrome trace of the first sampled batch "
+                        "(test mode, unconditional branch) into this folder")
     p.add_argument("--static_gn", action="store_true")
     p.add_argument("--attn_softmax_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
@@ -122,8 +124,6 @@ def _check_supported(opt):
          "the GN-stats-carry serving tier (ROADMAP.md queue 1, item 9c)"),
         (opt.static_gn, "--static_gn",
          "the static-GN serving tier (ROADMAP.md queue 1, item 9e)"),
-        (opt.profile_dir is not None, "--profile_dir",
-         "the port's benchmark and tracing (ROADMAP.md queue 1, item 7)"),
         (opt.coordinator_address is not None or opt.num_processes is not None
          or opt.process_id is not None, "the multi-host flags",
          "parallelism (ROADMAP.md queue 1, item 12)"),
@@ -336,15 +336,25 @@ def run_test(opt, device):
             x0 = x0[0:1]
             bs = 1
 
+        def _run():
+            s, f = sample_iadb(
+                model, x0,
+                nb_steps=opt.nb_steps, scheduler_alpha=opt.scheduler_alpha,
+                alpha_param=opt.scheduler_param, scheduler_gamma=opt.scheduler_gamma,
+                gamma_params=tuple(float(v) for v in sp), two_head=tcfg.two_head,
+                collect_frames=True,
+            )
+            synchronize(device)
+            return s, f
+
         t0 = time.time()
-        sample, frames = sample_iadb(
-            model, x0,
-            nb_steps=opt.nb_steps, scheduler_alpha=opt.scheduler_alpha,
-            alpha_param=opt.scheduler_param, scheduler_gamma=opt.scheduler_gamma,
-            gamma_params=tuple(float(v) for v in sp), two_head=tcfg.two_head,
-            collect_frames=True,
-        )
-        synchronize(device)
+        if opt.profile_dir and not times:  # trace the first executed batch
+            from bndm_tpu_torch.utils.timing import profile_trace
+
+            with profile_trace(opt.profile_dir):
+                sample, frames = _run()
+        else:
+            sample, frames = _run()
         times.append(time.time() - t0)
 
         to_save = sample if opt.save_all_samples else sample[:1]

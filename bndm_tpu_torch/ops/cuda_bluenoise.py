@@ -226,7 +226,11 @@ class FusedBlueNoise(torch.autograd.Function):
     ``_fused_flat_diff``). bn and wn do not depend on gamma, and the mix is
     ``bn*(1-g) + wn*g``, so d noise / d g = wn - bn, from K2's own outputs;
     GBN's noise is bn and has none. L (a fixed covariance factor) and the
-    seeds get no gradient; bn and wn are not differentiable."""
+    seeds get no gradient; bn and wn are not differentiable.
+    ``FusedBlueNoise.launches`` counts backward passes on the card (the
+    backward is torch ops, no kernel of its own, as the JAX JVP is jnp)."""
+
+    launches = 0
 
     @staticmethod
     def forward(ctx, L, gamma_cols, seeds, gbn_only):
@@ -243,6 +247,8 @@ class FusedBlueNoise(torch.autograd.Function):
             grad_gamma = torch.zeros(bn.shape[1], dtype=bn.dtype, device=bn.device)
         else:
             grad_gamma = (grad_noise * (wn - bn)).sum(dim=0)
+        if bn.is_cuda:
+            FusedBlueNoise.launches += 1
         return None, grad_gamma, None, None
 
 

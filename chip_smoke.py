@@ -15,24 +15,30 @@ PyTorch version:
   4. K2 (fused_bluenoise_flat) against its plain version and fp64 at
      M = 192, 7, 1500 on both L, the exact mix, the white noise's moments,
      determinism, and K3's gamma gradient; its time beside the plain
-     version's, the unfused torch sequence's and the bound;
-  5. the noise engine (gaussianBN, inplace) at res 32, 64, 128 on CUDA and
+     version's, the unfused torch sequence's and the bound; K3's backward
+     (torch ops) timed beside its bound;
+  5. the streaming probes P1-P3 (y + 1 in bf16) bitwise against their
+     plain version at the full and ragged shapes, on edge values, every
+     variant of the bench's sweep; their times beside torch.add's and the
+     bound; then both bench entry points (bndm_tpu_torch.scripts.
+     bench_stream and bench_elementwise) at their full shapes;
+  6. the noise engine (gaussianBN, inplace) at res 32, 64, 128 on CUDA and
      on the CPU, all three outputs compared;
-  6. one full-width res-64 UNet forward in fp32 (TF32 off), CUDA vs CPU;
-  7. super-res serving: the CLI with the flags of
+  7. one full-width res-64 UNet forward in fp32 (TF32 off), CUDA vs CPU;
+  8. super-res serving: the CLI with the flags of
      scripts/sampling/iadb_church_superres_test.sh (res 128, 116.3M UNet,
      250 steps) on 4 procedural images; K1 must launch once per request;
-  8. unconditional serving: the CLI with the flags of
+  9. unconditional serving: the CLI with the flags of
      scripts/sampling/cat_res64_test.sh (res 64, two-head 113.7M UNet, 250
-     steps) on 2 batches of 16;
-  9. training: the CLI with the flags of
+     steps) on 2 batches of 16, the first traced by --profile_dir;
+ 10. training: the CLI with the flags of
      scripts/training/iadb_bn_cat_res64.sh (gaussianBN, two-head 113.7M
      UNet, batch 64) for 8 steps on 512 procedural images, then a resumed
-     ninth step; K2 must launch once per step and K1 not at all; one step
-     traced (torch.profiler);
- 10. trace: one bf16 UNet forward of each served branch at its shape, its
+     ninth step; K2 and K3 must run once per step and K1 not at all; one
+     step traced (torch.profiler);
+ 11. trace: one bf16 UNet forward of each served branch at its shape, its
      host-clock time beside the device's busy time and top kernels;
- 11. one JSON line {"kernels": [...]}, then the last line
+ 12. one JSON line {"kernels": [...]}, then the last line
      {"ok": true, "device": {...}}.
 
 Every path is driven with the kernels' launch counts set to 0 just before
@@ -114,6 +120,15 @@ def k1_bound(n, m, peak_bytes, peak_flops):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
+def k3_bound(n, m, peak_bytes, peak_flops):
+    """Least time for K3's backward: grad, wn and bn read once, the (M,)
+    gradient written once; a subtract, a multiply and an add per element."""
+    nbytes = 4 * (3 * n * m + m)
+    flops = 3 * n * m
+    t_b, t_o = nbytes / peak_bytes, flops / peak_flops
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
 def k2_bound(n, m, peak_bytes, peak_flops):
     """Least time for K2: the triangle of L and gamma read once, noise, bn
     and wn written once; n(n+1)/2 * m multiply-adds and the mix's three
@@ -124,19 +139,24 @@ def k2_bound(n, m, peak_bytes, peak_flops):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
+def _counted():
+    """Every counted wrapper, by the name the script reads its count under."""
+    from bndm_tpu_torch.ops.cuda_bluenoise import FusedBlueNoise, fused_bluenoise_flat, tri_matmul
+    from bndm_tpu_torch.ops.stream_probes import dma_add_one, nhwc_add_one, stream_add_one
+
+    return {"tri_matmul": tri_matmul, "fused_bluenoise": fused_bluenoise_flat,
+            "fused_bluenoise_grad": FusedBlueNoise, "stream_add_one": stream_add_one,
+            "dma_add_one": dma_add_one, "nhwc_add_one": nhwc_add_one}
+
+
 def reset_launches():
     """Set every kernel's launch count to 0 (just before a path is driven)."""
-    from bndm_tpu_torch.ops.cuda_bluenoise import fused_bluenoise_flat, tri_matmul
-
-    tri_matmul.launches = 0
-    fused_bluenoise_flat.launches = 0
+    for fn in _counted().values():
+        fn.launches = 0
 
 
 def read_launches():
-    from bndm_tpu_torch.ops.cuda_bluenoise import fused_bluenoise_flat, tri_matmul
-
-    return {"tri_matmul": tri_matmul.launches,
-            "fused_bluenoise": fused_bluenoise_flat.launches}
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 def time_ms(torch, fn, iters, flush):
@@ -381,7 +401,113 @@ def phase_k2(torch, L_blue, peak, flush):
         log(f"K2 M={m} times (median, L2 flushed): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"unfused torch.randn + torch.matmul + mix {unfused_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by})")
-    return rows, worst, {"grad_max_abs_err": grad_err, "tangent_max_abs_err": tan_err}
+
+    k3_rows = []
+    for m in (192, 1500):
+        _, bn, wn = fused_bluenoise_flat(L_blue, torch.rand(m, generator=g).cuda(), (7, 8))
+        grad = torch.randn(n, m, generator=g).cuda()
+
+        def backward():  # FusedBlueNoise.backward: torch ops, its own plain version
+            return (grad * (wn - bn)).sum(dim=0)
+
+        ms = time_ms(torch, backward, 30, flush)
+        plain_ms = time_ms(torch, backward, 30, flush)
+        bound_ms, bound_by = k3_bound(n, m, *peak)
+        k3_rows.append({"m": m, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by})
+        log(f"K3 M={m} backward times (median, L2 flushed): {ms:.4f} ms (again: {plain_ms:.4f} "
+            f"ms), bound {bound_ms:.4f} ms ({bound_by})")
+    return rows, worst, {"grad_max_abs_err": grad_err, "tangent_max_abs_err": tan_err}, k3_rows
+
+
+def _edge_input(torch, shape, seed):
+    """bf16 ``shape`` of N(0, 64^2) values on the card, with +-0, +-inf,
+    values of 256 and more (where +1 rounds), values far below 2^-8 and
+    bf16 subnormals at the start, the end and every 997th element."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    x = torch.randn(shape, generator=g, device="cuda") * 64.0
+    edges = torch.tensor([0.0, -0.0, math.inf, -math.inf, 256.0, 257.0, 258.0, -256.0, 511.0,
+                          1e4, -1e4, 3e38, -1.0, 2.0**-9, -2.0**-9, 1e-20, -1e-30, 1e-39,
+                          -1e-39], device="cuda")
+    flat = x.view(-1)
+    k = min(len(edges), flat.numel())
+    flat[:k], flat[-k:] = edges[:k], edges[-k:]
+    idx = torch.arange(0, flat.numel(), 997, device="cuda")
+    flat[idx] = edges.repeat(len(idx) // len(edges) + 1)[: len(idx)]
+    return x.to(torch.bfloat16)
+
+
+def _bitwise(torch, got, want):
+    """(bits equal, max |difference| over the finite values)."""
+    same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+    err = (got.float() - want.float()).nan_to_num(0.0, 0.0, 0.0).abs().max().item()
+    return same, err
+
+
+def phase_probes(torch, peak_bytes):
+    """P1-P3 bitwise against add_one_plain at the full and ragged shapes;
+    their times (CUDA events over ``inner`` chained passes) beside the
+    plain version's, torch.add's and the bytes bound; then the two bench
+    entry points at their full shapes, the launch counts reset before."""
+    from bndm_tpu_torch.ops.stream_probes import (add_one_plain, dma_add_one, nhwc_add_one,
+                                                  stream_add_one)
+    from bndm_tpu_torch.scripts import bench_elementwise, bench_stream
+    from bndm_tpu_torch.utils.timing import pass_ms
+
+    t_phase = time.time()
+    inner = 20
+    variants = {"P1": [(f"{rpb} rows {sched}", lambda y, r=rpb, s=sched: stream_add_one(y, r, s))
+                       for rpb in bench_stream.ROWS_PER_BLOCK for sched in bench_stream.SCHEDULES],
+                "P2": [(f"{c // 1024} KiB x {st} stages", lambda y, c=c, st=st: dma_add_one(y, c, st))
+                       for c, st in bench_stream.DMA_SWEEP],
+                "P3": [("2 images per block", nhwc_add_one)]}
+    full = {"P1": (256000, 1024), "P2": (256000, 1024), "P3": (500, 64, 64, 128)}
+    ragged = {"P1": [(257, 1024), (5, 1001)], "P2": [(257, 1024), (5, 1001), (3, 13)],
+              "P3": [(3, 8, 8, 128), (3, 5, 7, 9)]}
+    worst = {"P1": 0.0, "P2": 0.0, "P3": 0.0}
+    rows = {}
+    for p, vs in variants.items():
+        for seed, shape in enumerate(ragged[p] + [full[p]]):
+            x = _edge_input(torch, shape, seed)
+            want = add_one_plain(x)
+            for vname, fn in vs:
+                same, err = _bitwise(torch, fn(x), want)
+                check(same, f"{p} ({vname}) is not bitwise add_one_plain at {shape}")
+                worst[p] = max(worst[p], err)
+            log(f"{p} at {shape}: {len(vs)} variant(s) bitwise equal to add_one_plain")
+        x = _edge_input(torch, full[p], 99)
+        moved = 2 * x.numel() * x.element_size()
+        bound_ms = moved / peak_bytes * 1e3
+        plain_ms = pass_ms(add_one_plain, x, inner)
+        lib_ms = pass_ms(lambda y: torch.add(y, 1), x, inner)
+        by_variant = []
+        for vname, fn in vs:
+            ms = pass_ms(fn, x, inner)
+            by_variant.append({"variant": vname, "ms": ms})
+            log(f"{p} {vname} at {full[p]}: {ms:.4f} ms, {moved / ms / 1e6:.1f} GB/s, "
+                f"{100 * bound_ms / ms:.1f} % of the bound")
+        best = min(by_variant, key=lambda r: r["ms"])
+        rows[p] = dict(best, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                       gb_s=moved / best["ms"] / 1e6, max_abs_err=worst[p],
+                       shape=str(full[p]), by_variant=by_variant)
+        log(f"{p} times ({inner} chained passes, CUDA events): best {best['ms']:.4f} ms "
+            f"({best['variant']}), plain {plain_ms:.4f} ms, torch.add {lib_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms (bytes)")
+        del x
+
+    reset_launches()
+    stream_rows = bench_stream.main()
+    elem_rows = bench_elementwise.main()
+    counts = read_launches()
+    for p, name in (("P1", "stream_add_one"), ("P2", "dma_add_one"), ("P3", "nhwc_add_one")):
+        rows[p]["launches"] = counts[name]
+        check(counts[name] > 0, f"{p} was not launched by the bench entry points")
+    check(len(stream_rows) == 13 and len(elem_rows) == 12, "a bench case is missing")
+    check(all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in stream_rows + elem_rows),
+          "a bench case has no time")
+    log(f"probes: launches in the bench entry points P1 {counts['stream_add_one']}, P2 "
+        f"{counts['dma_add_one']}, P3 {counts['nhwc_add_one']}; phase {time.time() - t_phase:.1f}s")
+    return rows
 
 
 def phase_noise(torch, L_blue):
@@ -469,6 +595,7 @@ def phase_uncond(torch, work, bn_dir):
             "--nb_steps=250", "--test_samples=32", "--noise_type=gaussianBN",
             "--scheduler_gamma=sigmoid", "--scheduler_param=1000", "--out_channel=6",
             "--save_all_samples", "--device=cuda", f"--bluenoise_dir={bn_dir}"]
+    trace_dir = os.path.join(work, "uncond_trace")
     out_dir = os.path.join(work, output_folder_name(parse_args(argv)))
     n_params = write_ckpt(torch, unet_config_for_res(64, out_channels=6),
                           os.path.join(out_dir, "model.ckpt"), seed=5)
@@ -476,10 +603,19 @@ def phase_uncond(torch, work, bn_dir):
     record = []
     reset_launches()
     with watched_sampler(record):
-        text = run_cli(argv)
+        text = run_cli(argv + [f"--profile_dir={trace_dir}"])
     counts = read_launches()
     log(f"unconditional: K1 launches {counts['tri_matmul']}, K2 launches "
         f"{counts['fused_bluenoise']} (the branch draws plain white x0)")
+    traces = sorted(os.listdir(trace_dir)) if os.path.isdir(trace_dir) else []
+    check(len(traces) == 1, f"--profile_dir wrote {traces}, not one trace file")
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    log(f"unconditional: --profile_dir trace {traces[0]}, "
+        f"{os.path.getsize(os.path.join(trace_dir, traces[0])) / 2**20:.1f} MiB, "
+        f"{len(events)} events, {len(kernels)} distinct CUDA kernels")
+    check(kernels, "the --profile_dir trace names no CUDA kernel")
     check(len(record) == 2 and all(f and s == (16, 3, 64, 64) for s, f, _ in record),
           f"bad samples: {record}")
     m = re.search(r"gallery: (\d+) images written", text)
@@ -515,6 +651,7 @@ def phase_train(torch, work, bn_dir):
         with watched_trainer(record):
             text = run_cli(argv + [f"--max_steps={steps}"])
         counts = read_launches()
+        counts_k3 = counts["fused_bluenoise_grad"]
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         losses = np.atleast_1d(np.loadtxt(os.path.join(run, "losses.txt")))
         sched = np.loadtxt(os.path.join(run, "scheduler_params.txt"))
@@ -525,6 +662,7 @@ def phase_train(torch, work, bn_dir):
         check(len(record) == steps and all(p == 113_676_678 for _, p in record),
               f"expected {steps} steps of the 113.7M UNet, got {record}")
         check(counts["fused_bluenoise"] == steps, "K2 must launch once per train step")
+        check(counts["fused_bluenoise_grad"] == steps, "K3 must run once per train step")
         check(counts["tri_matmul"] == 0, "K1 is not on the res-64 training path")
         check(losses.shape == (steps,) and bool(np.isfinite(losses).all()),
               "losses.txt must hold one finite loss per step")
@@ -563,7 +701,8 @@ def phase_train(torch, work, bn_dir):
         _log_top(kern)
     else:
         log("trace train step: device time not measured (the profiler saw no CUDA kernels)")
-    return {"launches": steps, "first_step_s": secs[0], "images_per_s": steady,
+    return {"launches": steps, "k3_launches": counts_k3, "first_step_s": secs[0],
+            "images_per_s": steady,
             "step_s": secs, "peak_gib": peak_gib}
 
 
@@ -672,22 +811,25 @@ def main():
 
         # 3-4. K1, K2 and K3
         rows, err_plain, err_fp64 = phase_k1(torch, L_blue, peak, flush)
-        k2_rows, k2_err, k3_err = phase_k2(torch, L_blue, peak, flush)
+        k2_rows, k2_err, k3_err, k3_rows = phase_k2(torch, L_blue, peak, flush)
         del flush
-        # 5-6. noise engine and UNet, CUDA vs CPU
+        # 5. the streaming probes and their bench entry points
+        probes = phase_probes(torch, peak[0])
+        torch.cuda.empty_cache()
+        # 6-7. noise engine and UNet, CUDA vs CPU
         phase_noise(torch, L_blue)
         phase_unet(torch)
-        # 7-8. the served paths
+        # 8-9. the served paths
         sr = phase_superres(torch, work, bn_dir)
         log(f"super-res: samples/s per request (sampler only, synchronised) "
             f"{sr['samples_per_s']}")
         un = phase_uncond(torch, work, bn_dir)
         log(f"unconditional: samples/s per batch (sampler only, synchronised) "
             f"{un['samples_per_s']}")
-        # 9. the training path
+        # 10. the training path
         tr = phase_train(torch, work, bn_dir)
         torch.cuda.empty_cache()
-        # 10. where a served step's time goes
+        # 11. where a served step's time goes
         phase_trace(torch)
 
     main_row = next(r for r in rows if r["m"] == 12)  # the super-res request's shape
@@ -726,10 +868,39 @@ def main():
         "unfused_torch_ms": k2_row["unfused_torch_ms"],
         "unfused_torch": "torch.randn + torch.matmul + the mix, three calls",
         "shape": "L (4096, 4096), gamma (192,) -> noise, bn, wn (4096, 192)",
-        "gradient": dict(k3_err, name="FusedBlueNoise (K3, replaces "
-                         "bndm_tpu/ops/pallas_bluenoise.py:243)"),
         "by_m": k2_rows,
+    }, {
+        "name": "fused_bluenoise_grad",
+        "route": "cuda",
+        "source": "bndm_tpu_torch/ops/cuda_bluenoise.py",
+        "replaces": "bndm_tpu/ops/pallas_bluenoise.py:244",
+        "note": "FusedBlueNoise.backward: torch ops on the card, no kernel of its own (the "
+                "JAX JVP is jnp); its plain version is itself, timed twice",
+        "launches": tr["k3_launches"],
+        "max_abs_err": k3_err["grad_max_abs_err"],
+        "tangent_max_abs_err": k3_err["tangent_max_abs_err"],
+        "ms": k3_rows[0]["ms"],
+        "plain_ms": k3_rows[0]["plain_ms"],
+        "bound_ms": k3_rows[0]["bound_ms"],
+        "bound_by": k3_rows[0]["bound_by"],
+        "library_ms": None,  # no single PyTorch call: a multiply and a column sum
+        "shape": "grad, wn, bn (4096, 192) -> (192,)",
+        "by_m": k3_rows,
     }]
+    for p, name, route, source, replaces in (
+            ("P1", "stream_add_one", "triton", "bndm_tpu_torch/ops/stream_probes.py",
+             "scripts/bench_pallas_stream.py:35"),
+            ("P2", "dma_add_one", "cuda", "bndm_tpu_torch/csrc/stream_dma.cu",
+             "scripts/bench_pallas_stream.py:55"),
+            ("P3", "nhwc_add_one", "triton", "bndm_tpu_torch/ops/stream_probes.py",
+             "scripts/bench_elementwise_tpu.py:69")):
+        r = probes[p]
+        kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
+                        "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+                        "ms": r["ms"], "variant": r["variant"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": "bytes",
+                        "library_ms": r["library_ms"], "library": "torch.add(y, 1)",
+                        "gb_s": r["gb_s"], "shape": r["shape"], "by_variant": r["by_variant"]})
     log(f"train: {tr['images_per_s']:.2f} images/s over steps 2-8, first step "
         f"{tr['first_step_s']:.3f} s (batch 64)")
     log(f"wall {time.time() - t_start:.1f}s")

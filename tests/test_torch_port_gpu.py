@@ -230,3 +230,90 @@ def test_train_loss_on_card_matches_cpu(noise_type, outc, engine):
         scale[module[k]] = max(scale.get(module[k], 0.0), float(v.abs().max()))
     for k in gc:
         torch.testing.assert_close(gg[k], gc[k], rtol=1e-3, atol=1e-3 * scale[module[k]])
+
+
+# ------------------------- P1-P3: the streaming probes -----------------------
+
+
+def _edge_bf16(shape, seed):
+    """bf16 N(0, 64^2) values with +-0, +-inf, values of 256 and more (where
+    +1 rounds), values far below 2^-8 and subnormals at the start and end."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g) * 64.0
+    edges = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), 256.0, 257.0, -256.0, 511.0,
+                          -1.0, 2.0**-9, 1e-20, -1e-30, 1e-39])
+    flat = x.view(-1)
+    k = min(len(edges), flat.numel())
+    flat[:k], flat[-k:] = edges[:k], edges[-k:]
+    return x.to(torch.bfloat16).cuda()
+
+
+def _assert_bits(got, x):
+    from bndm_tpu_torch.ops.stream_probes import add_one_plain
+
+    assert torch.equal(got.view(torch.int16), add_one_plain(x).view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows_per_block", [256, 512, 1024])
+@pytest.mark.parametrize("schedule", ["parallel", "persistent"])
+def test_stream_add_one_kernel_is_bitwise_plain(rows_per_block, schedule):
+    """P1 (Triton) equals add_one_plain bit for bit at ragged rows and
+    columns, one counted launch per call."""
+    from bndm_tpu_torch.ops.stream_probes import stream_add_one
+
+    _cuda_or_skip()
+    for seed, shape in enumerate([(257, 1024), (5, 1001), (2048, 1024)]):
+        x = _edge_bf16(shape, seed)
+        before = stream_add_one.launches
+        got = stream_add_one(x, rows_per_block, schedule)
+        torch.cuda.synchronize()
+        assert stream_add_one.launches == before + 1
+        _assert_bits(got, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk_bytes,stages", [(16384, 2), (32768, 2), (49152, 2), (16384, 3),
+                                                (32768, 3), (16384, 4), (16, 2)])
+def test_dma_add_one_kernel_is_bitwise_plain(chunk_bytes, stages):
+    """P2 (bulk TMA + mbarriers) equals add_one_plain bit for bit: a last
+    chunk shorter than the others, a tail that is not a multiple of 16
+    bytes, fewer chunks than SMs and many chunks per block."""
+    from bndm_tpu_torch.ops.stream_probes import dma_add_one
+
+    _cuda_or_skip()
+    for seed, shape in enumerate([(257, 1024), (5, 1001), (3, 13), (1, 7), (4096, 1024)]):
+        x = _edge_bf16(shape, seed)
+        before = dma_add_one.launches
+        got = dma_add_one(x, chunk_bytes, stages)
+        torch.cuda.synchronize()
+        assert dma_add_one.launches == before + 1
+        _assert_bits(got, x)
+
+
+@pytest.mark.gpu
+def test_dma_add_one_refuses_what_shared_memory_cannot_hold():
+    """2 x 4 stages x 64 KiB exceeds a block's shared memory: the launch is
+    refused and the wrapper raises instead of returning garbage."""
+    from bndm_tpu_torch.ops.stream_probes import dma_add_one
+
+    _cuda_or_skip()
+    x = _edge_bf16((64, 1024), 0)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        dma_add_one(x, 65536, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3, 8, 8, 128), (3, 5, 7, 9), (8, 64, 64, 128)])
+def test_nhwc_add_one_kernel_is_bitwise_plain(shape):
+    """P3 (Triton) equals add_one_plain bit for bit, with an odd image
+    count (a last block of one image) and odd H, W, C."""
+    from bndm_tpu_torch.ops.stream_probes import nhwc_add_one
+
+    _cuda_or_skip()
+    x = _edge_bf16(shape, 1)
+    before = nhwc_add_one.launches
+    got = nhwc_add_one(x)
+    torch.cuda.synchronize()
+    assert nhwc_add_one.launches == before + 1
+    _assert_bits(got, x)
