@@ -1,155 +1,466 @@
 // K1: out = L @ W with L lower-triangular, fp32 throughout.
 //
 // Replaces the TPU kernel `_pallas_matmul` (body `_matmul_kernel`) of
-// bndm_tpu/ops/pallas_bluenoise.py, which `apply_L` dispatches for every
+// bndm_tpu/ops/pallas_bluenoise.py:74, which `apply_L` dispatches for every
 // correlated noise draw: L is the (4096, 4096) covariance factor and W the
 // white noise folded to (4096, M) with batch and channel as columns.
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 on CUDA cores):
-//   * M = 12 (one res-128 super-res request: 4 tiles x 3 channels): reading
-//     the lower triangle of L, n(n+1)/2 * 4 B = 33.6 MB, about 10 us. The
-//     product is a skinny matrix-vector-like pass and is memory bound.
-//   * M = 1500 (a res-64 batch of 500): n(n+1) * M = 2.5e10 fp32 FLOP,
-//     about 0.38 ms. There it is bound by fp32 arithmetic.
+//   * skinny M (a super-res request is M = 12: 4 tiles x 3 channels): the
+//     bytes. The lower triangle of L is n(n+1)/2 * 4 B = 33.6 MB, about
+//     10 us; its n(n+1) * M FLOPs overtake it near M = 42.
+//   * wide M (a res-128 train step at batch 64 is M = 768, a res-64 gallery
+//     batch of 500 is M = 1500): the fp32 operations, n(n+1) * M FLOP,
+//     0.19 ms and 0.38 ms.
 // TF32 tensor cores are not used: their 10-bit mantissa breaks the 2e-5
 // contract the noise engine is held to, so every product is an fp32 FMA.
+// The triangular skip holds in both designs: nothing right of a row
+// block's diagonal tile is read. Tiles that straddle the diagonal multiply
+// through L's zeros, so the kernels ASSUME L is lower-triangular.
 //
-// Design. Each thread block owns one output tile (rows i*BM.., columns
-// j*BN..) and loops over K only up to min(n, (i+1)*BM): the triangular
-// bound the Pallas kernel expresses with `live`. Column tiles wholly above
-// the diagonal are never read, which halves both the bytes and the FLOPs.
-// Tiles that straddle the diagonal multiply through L's zeros, so the
-// kernel ASSUMES L is lower-triangular; row block i never reads a column of
-// L past (i+1)*BM - 1.
-// L and W tiles are staged through shared memory, and the next tile is
-// fetched into registers while the current one is multiplied, which hides
-// part of the load latency in the memory-bound skinny case. The ragged
-// edges (rows, K and columns) are masked in the kernel instead of padding W.
-// Two tile shapes: a narrow one (many row blocks, deep K tiles) for M <= 16,
-// where the pass is memory bound and 4096/64 row blocks would leave half
-// the 132 SMs idle, and a square one for wide M.
+// Two designs, chosen by M in the wrapper (ops/cuda_bluenoise.py,
+// SKINNY_MAX_M, set from a sweep on the card):
 //
-// The kernel launches on the caller's stream, allocates nothing and does
-// not synchronise; the C entry point returns cudaGetLastError().
+// (a) Skinny, bndm_tri_matmul_skinny_f32. Row block i of 16 rows reads
+//     (i+1) * 16 columns of L, so a plain grid leaves the last block with
+//     twice the mean bytes and one SM's latency sets the time. Each block
+//     takes the pair of row blocks (i, nb-1-i) (the table `pairs`, computed
+//     in Python), so every block reads the same n * 16 elements of L, and
+//     128 pairs fill the SMs at n = 4096. Its work is a list of items, the
+//     short block's K chunks of 256 and then the long block's, about 17 for
+//     every pair, so the blocks are level in steps as well as in bytes. The
+//     items flow through a ring of 4 shared-memory stages filled by cp.async
+//     (16-byte copies, zero-filled past the triangular bound): 3 items, 48 KB
+//     of L, are in flight while one is multiplied, more than Little's law
+//     asks of an SM at 3.35 TB/s. An item's chunk of W (256 x M) is staged
+//     beside it (L2 serves it). Each lane holds 2 rows of each block (1 for
+//     M > 16) and all M columns, and the 8 warps x 4 lanes per row split an
+//     item's K. So a W value read from shared memory (a broadcast) feeds 2
+//     FMAs, and every lane works on every item: with a lane per row the
+//     broadcast loads, not HBM, set the time. The partial sums are added in
+//     shared memory in a fixed order. At M = 12 the kernel reads L about as
+//     fast as torch.sum reads the same 33.6 MB (PERF.md); a deeper ring,
+//     longer items and bulk (TMA) copies of L were no faster.
+//
+// (b) Wide, bndm_tri_matmul_wide_f32. 128 x 128 output tiles, 256 threads,
+//     an 8 x 8 register micro-tile each (8 consecutive rows, two groups of 4
+//     columns 64 apart), K in steps of 32 through a ring of 4 cp.async
+//     stages. L's tile is kept as it lies in memory ([row][k], rows padded
+//     to 36 floats): a thread reads float4s of its rows, one address per
+//     quarter warp (a broadcast); W's tile [k][col] is read as float4s of 8
+//     consecutive lanes on 128 consecutive bytes: no bank conflicts. Row
+//     tiles near the top of the triangle are short, so a plain grid leaves
+//     SMs idle; instead a persistent grid of one block per SM walks a
+//     schedule computed in Python: the tiles' K steps laid end to end and cut
+//     into equal contiguous ranges, one per block. A range becomes units
+//     (row tile, column tile, K range); a tile cut between blocks writes its
+//     partial sums to scratch slots, and a second kernel adds a tile's slots
+//     in their fixed order. No float atomics anywhere: the output is the
+//     same bits run to run. Per k a warp issues 4 16-byte shared loads a
+//     thread (16 wavefronts) for 64 FMAs a thread, so the shared-memory and
+//     FMA pipes are loaded alike; steps of 32 (not 16) halve the barriers,
+//     and two blocks per SM (128 registers a thread) were no faster.
+//
+// Ragged n, M and K are masked (cp.async with a source size of 0 fills
+// zeros). The 16-byte copies need n and M to be multiples of 4 and aligned
+// pointers; otherwise the same kernels copy 4 bytes at a time.
+//
+// The kernels launch on the caller's stream, allocate nothing (the wrapper
+// passes the schedule and the scratch) and do not synchronise; each C
+// entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
-template <int BM, int BN, int BK, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-tri_matmul_kernel(const float* __restrict__ L, const float* __restrict__ W,
-                  float* __restrict__ out, int n, int m) {
-  constexpr int THREADS = (BM / TM) * (BN / TN);
-  constexpr int L_PER_THREAD = BM * BK / THREADS;
-  constexpr int W_PER_THREAD = BK * BN / THREADS;
-  static_assert(BM * BK % THREADS == 0, "L tile must split evenly");
-  static_assert(BK * BN % THREADS == 0, "W tile must split evenly");
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  // L is stored transposed (k-major) so a thread reads its TM rows of one
-  // k step as consecutive words; +1 pads away bank conflicts on the store.
-  __shared__ float Ls[BK][BM + 1];
-  __shared__ float Ws[BK][BN];
+// Copy 16 (or 4) bytes global -> shared; src_bytes = 0 writes zeros.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
 
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-  const int ty = tid / (BN / TN);
-  const int tx = tid % (BN / TN);
-  const int k_end = min(n, row0 + BM);  // triangular bound
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
 
-  float l_reg[L_PER_THREAD];
-  float w_reg[W_PER_THREAD];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int s = 0; s < L_PER_THREAD; ++s) {
-      const int e = tid + s * THREADS;
-      const int r = e / BK, kk = e % BK;
-      const int gr = row0 + r, gk = k0 + kk;
-      l_reg[s] = (gr < n && gk < n) ? L[(size_t)gr * n + gk] : 0.f;
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {  // <= N groups still in flight
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------ (a) skinny M --------------------------------
+
+constexpr int SK_BM = 16;  // rows of a row block: a block takes two, short and long
+constexpr int SK_STAGES = 4;
+constexpr int SK_THREADS = 256;
+constexpr int SK_WARPS = SK_THREADS / 32;
+
+// MC: columns held (>= m); RL: rows of each block a lane holds; KC: K of
+// one item (16 rows x KC of L and KC x MC of W, one ring stage).
+template <int MC, int RL, int KC>
+struct Skinny {
+  static constexpr int LPAD = KC + 4;  // L row stride in shared memory, 16-byte aligned
+  static constexpr int STAGE = SK_BM * LPAD + KC * MC;  // floats
+  static constexpr int RG = SK_BM / RL;  // lanes on distinct rows
+  static constexpr int KS = 32 / RG;     // ... times K slices of a warp's share
+  static constexpr int KSUB = KC / SK_WARPS / KS;
+  static constexpr int PARTS = SK_WARPS * KS;  // partial sums per output
+  static constexpr int RING = SK_STAGES * STAGE * 4;
+  static constexpr int RED = PARTS * 2 * SK_BM * MC * 4;
+  static constexpr int SMEM = RING > RED ? RING : RED;
+  static_assert(KSUB % 4 == 0, "float4 reads of L");
+  static_assert(MC % 4 == 0, "float4 reads of W");
+};
+
+// The block's items: the short row block's K chunks, then the long one's,
+// ceil(short_end / KC) + ceil(long_end / KC) of them, about the same count
+// for every pair. Lane (g, ks) holds rows g + RG*i (i < RL) of each block
+// and k = warp*KC/8 + ks*KSUB .. + KSUB of every item.
+template <int MC, int RL, int KC, bool VEC>
+__global__ void __launch_bounds__(SK_THREADS, 1)
+tri_skinny_kernel(const float* __restrict__ L, const float* __restrict__ W,
+                  float* __restrict__ out, const int* __restrict__ pairs, int n, int m) {
+  using S = Skinny<MC, RL, KC>;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane % S::RG, ks = lane / S::RG;
+  const int rb_short = pairs[2 * blockIdx.x];  // -1: the long block is alone
+  const int rb_long = pairs[2 * blockIdx.x + 1];
+  const int short_end = rb_short >= 0 ? min(n, (rb_short + 1) * SK_BM) : 0;
+  const int long_end = min(n, (rb_long + 1) * SK_BM);
+  const int n_short = (short_end + KC - 1) / KC;
+  const int n_items = n_short + (long_end + KC - 1) / KC;
+
+  auto load = [&](int stage, int t) {
+    const bool is_short = t < n_short;
+    const int row0 = (is_short ? rb_short : rb_long) * SK_BM;
+    const int end = is_short ? short_end : long_end;  // the triangular bound
+    const int k0 = (is_short ? t : t - n_short) * KC;
+    float* Ls = smem + stage * S::STAGE;
+    float* Ws = Ls + SK_BM * S::LPAD;
+    constexpr int V = VEC ? 4 : 1;
+    for (int e = tid; e < SK_BM * (KC / V); e += SK_THREADS) {
+      const int r = e / (KC / V), c = (e % (KC / V)) * V;
+      const int gr = row0 + r, gk = k0 + c;
+      const bool ok = gr < n && gk < end;
+      const float* src = ok ? L + static_cast<size_t>(gr) * n + gk : L;
+      if (VEC) cp_async16(Ls + r * S::LPAD + c, src, ok);
+      else cp_async4(Ls + r * S::LPAD + c, src, ok);
     }
-#pragma unroll
-    for (int s = 0; s < W_PER_THREAD; ++s) {
-      const int e = tid + s * THREADS;
-      const int kk = e / BN, c = e % BN;
-      const int gk = k0 + kk, gc = col0 + c;
-      w_reg[s] = (gk < n && gc < m) ? W[(size_t)gk * m + gc] : 0.f;
+    for (int e = tid; e < KC * (MC / V); e += SK_THREADS) {
+      const int kk = e / (MC / V), j = (e % (MC / V)) * V;
+      const int gk = k0 + kk;
+      const bool ok = gk < end && j < m;
+      const float* src = ok ? W + static_cast<size_t>(gk) * m + j : W;
+      if (VEC) cp_async16(Ws + kk * MC + j, src, ok);
+      else cp_async4(Ws + kk * MC + j, src, ok);
     }
   };
 
-  float acc[TM][TN];
+  float acc[RL][MC], acc_short[RL][MC];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < RL; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  fetch(0);
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-#pragma unroll
-    for (int s = 0; s < L_PER_THREAD; ++s) {
-      const int e = tid + s * THREADS;
-      Ls[e % BK][e / BK] = l_reg[s];
-    }
-#pragma unroll
-    for (int s = 0; s < W_PER_THREAD; ++s) {
-      const int e = tid + s * THREADS;
-      Ws[e / BN][e % BN] = w_reg[s];
-    }
-    __syncthreads();
-    if (k0 + BK < k_end) fetch(k0 + BK);  // in flight during the FMAs below
+    for (int j = 0; j < MC; ++j) acc[i][j] = acc_short[i][j] = 0.f;
 
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
+  for (int s = 0; s < SK_STAGES - 1; ++s) {
+    if (s < n_items) load(s, s);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_items; ++t) {
+    cp_async_wait<SK_STAGES - 2>();
+    __syncthreads();  // item t landed; item t-1's stage is free
+    const int next = t + SK_STAGES - 1;
+    if (next < n_items) load(next % SK_STAGES, next);
+    cp_async_commit();
+    if (t == n_short) {  // the long block's items start
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = Ls[kk][ty * TM + i];
+      for (int i = 0; i < RL; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Ws[kk][tx * TN + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < MC; ++j) {
+          acc_short[i][j] = acc[i][j];
+          acc[i][j] = 0.f;
+        }
     }
-    __syncthreads();
+    const int k = warp * (KC / SK_WARPS) + ks * S::KSUB;
+    const float* Ls = smem + (t % SK_STAGES) * S::STAGE + g * S::LPAD + k;
+    const float* Ws = smem + (t % SK_STAGES) * S::STAGE + SK_BM * S::LPAD + k * MC;
+#pragma unroll
+    for (int q = 0; q < S::KSUB; q += 4) {
+      float a[RL][4];
+#pragma unroll
+      for (int i = 0; i < RL; ++i) {  // a quarter warp reads 8 rows: no bank conflict
+        const float4 v = *reinterpret_cast<const float4*>(Ls + i * S::RG * S::LPAD + q);
+        a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* wr = Ws + (q + u) * MC;
+#pragma unroll
+        for (int j = 0; j < MC; j += 4) {  // one address per quarter warp: a broadcast
+          const float4 b = *reinterpret_cast<const float4*>(wr + j);
+#pragma unroll
+          for (int i = 0; i < RL; ++i) {
+            acc[i][j] = fmaf(a[i][u], b.x, acc[i][j]);
+            acc[i][j + 1] = fmaf(a[i][u], b.y, acc[i][j + 1]);
+            acc[i][j + 2] = fmaf(a[i][u], b.z, acc[i][j + 2]);
+            acc[i][j + 3] = fmaf(a[i][u], b.w, acc[i][j + 3]);
+          }
+        }
+      }
+    }
   }
 
+  // the partials of the (warp, K slice) pairs, added in that fixed order
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = smem;  // [part][32 local rows: short, then long][MC], over the ring
+  const int part = warp * S::KS + ks;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gr = row0 + ty * TM + i;
+  for (int i = 0; i < RL; ++i)
+#pragma unroll
+    for (int j = 0; j < MC; ++j) {
+      red[(part * 2 * SK_BM + g + S::RG * i) * MC + j] = acc_short[i][j];
+      red[(part * 2 * SK_BM + SK_BM + g + S::RG * i) * MC + j] = acc[i][j];
+    }
+  __syncthreads();
+  for (int e = tid; e < 2 * SK_BM * MC; e += SK_THREADS) {
+    const int r = e / MC, j = e % MC;
+    const bool is_short = r < SK_BM;
+    if (j >= m || (is_short && rb_short < 0)) continue;
+    const int gr = is_short ? rb_short * SK_BM + r : rb_long * SK_BM + (r - SK_BM);
     if (gr >= n) continue;
+    float s = red[r * MC + j];
+#pragma unroll 4
+    for (int p = 1; p < S::PARTS; ++p) s += red[(p * 2 * SK_BM + r) * MC + j];
+    out[static_cast<size_t>(gr) * m + j] = s;
+  }
+}
+
+template <int MC, int RL, int KC, bool VEC>
+int launch_skinny(const float* L, const float* W, float* out, const int* pairs, int n_pairs,
+                  int n, int m, cudaStream_t stream) {
+  constexpr int smem = Skinny<MC, RL, KC>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(tri_skinny_kernel<MC, RL, KC, VEC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tri_skinny_kernel<MC, RL, KC, VEC><<<n_pairs, SK_THREADS, smem, stream>>>(L, W, out, pairs,
+                                                                            n, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool VEC>
+int dispatch_skinny(const float* L, const float* W, float* out, const int* pairs, int n_pairs,
+                    int n, int m, cudaStream_t s) {
+  if (m <= 4) return launch_skinny<4, 2, 256, VEC>(L, W, out, pairs, n_pairs, n, m, s);
+  if (m <= 8) return launch_skinny<8, 2, 256, VEC>(L, W, out, pairs, n_pairs, n, m, s);
+  if (m <= 12) return launch_skinny<12, 2, 256, VEC>(L, W, out, pairs, n_pairs, n, m, s);
+  if (m <= 16) return launch_skinny<16, 2, 256, VEC>(L, W, out, pairs, n_pairs, n, m, s);
+  if (m <= 32) return launch_skinny<32, 1, 256, VEC>(L, W, out, pairs, n_pairs, n, m, s);
+  if (m <= 64) return launch_skinny<64, 1, 128, VEC>(L, W, out, pairs, n_pairs, n, m, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ------------------------------- (b) wide M ---------------------------------
+
+constexpr int WD_BM = 128, WD_BN = 128, WD_BK = 32;  // WIDE_BK in the wrapper
+constexpr int WD_APAD = WD_BK + 4;  // L tile row stride (floats), 16-byte aligned
+constexpr int WD_STAGES = 4;
+constexpr int WD_THREADS = 256;
+constexpr int WD_TM = 8, WD_TN = 8;
+constexpr int WD_STAGE = WD_BM * WD_APAD + WD_BK * WD_BN;  // floats
+constexpr int WD_SMEM = WD_STAGES * WD_STAGE * 4;
+constexpr int WD_TILE = WD_BM * WD_BN;
+static_assert((WD_BM / WD_TM) * (WD_BN / WD_TN) == WD_THREADS, "one micro-tile a thread");
+
+// units: (row tile, column tile, k_lo, k_hi, slot), slot -1 = the whole tile,
+// written to out; block b walks units[block_start[b] .. block_start[b+1]).
+template <bool VEC>
+__global__ void __launch_bounds__(WD_THREADS, 1)
+tri_wide_kernel(const float* __restrict__ L, const float* __restrict__ W,
+                float* __restrict__ out, float* __restrict__ ws, const int* __restrict__ units,
+                const int* __restrict__ block_start, int n, int m) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int tx = tid % (WD_BN / WD_TN), ty = tid / (WD_BN / WD_TN);
+  constexpr int V = VEC ? 4 : 1;
+
+  for (int u = block_start[blockIdx.x]; u < block_start[blockIdx.x + 1]; ++u) {
+    const int* unit = units + 5 * u;
+    const int row0 = unit[0] * WD_BM, col0 = unit[1] * WD_BN;
+    const int k_lo = unit[2], k_hi = unit[3], slot = unit[4];
+    const int n_steps = (k_hi - k_lo + WD_BK - 1) / WD_BK;
+
+    auto load = [&](int stage, int step) {
+      float* As = smem + stage * WD_STAGE;
+      float* Bs = As + WD_BM * WD_APAD;
+      const int k0 = k_lo + step * WD_BK;
+      for (int e = tid; e < WD_BM * (WD_BK / V); e += WD_THREADS) {
+        const int r = e / (WD_BK / V), c = (e % (WD_BK / V)) * V;
+        const int gr = row0 + r, gk = k0 + c;
+        const bool ok = gr < n && gk < k_hi;
+        const float* src = ok ? L + static_cast<size_t>(gr) * n + gk : L;
+        if (VEC) cp_async16(As + r * WD_APAD + c, src, ok);
+        else cp_async4(As + r * WD_APAD + c, src, ok);
+      }
+      for (int e = tid; e < WD_BK * (WD_BN / V); e += WD_THREADS) {
+        const int kk = e / (WD_BN / V), j = (e % (WD_BN / V)) * V;
+        const int gk = k0 + kk, gc = col0 + j;
+        const bool ok = gk < k_hi && gc < m;
+        const float* src = ok ? W + static_cast<size_t>(gk) * m + gc : W;
+        if (VEC) cp_async16(Bs + kk * WD_BN + j, src, ok);
+        else cp_async4(Bs + kk * WD_BN + j, src, ok);
+      }
+    };
+
+    float acc[WD_TM][WD_TN];
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gc = col0 + tx * TN + j;
-      if (gc < m) out[(size_t)gr * m + gc] = acc[i][j];
+    for (int i = 0; i < WD_TM; ++i)
+#pragma unroll
+      for (int j = 0; j < WD_TN; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+    for (int s = 0; s < WD_STAGES - 1; ++s) {
+      if (s < n_steps) load(s, s);
+      cp_async_commit();
+    }
+    for (int step = 0; step < n_steps; ++step) {
+      cp_async_wait<WD_STAGES - 2>();
+      __syncthreads();
+      const int next = step + WD_STAGES - 1;
+      if (next < n_steps) load(next % WD_STAGES, next);
+      cp_async_commit();
+      const float* As = smem + (step % WD_STAGES) * WD_STAGE + (ty * WD_TM) * WD_APAD;
+      const float* Bs = smem + (step % WD_STAGES) * WD_STAGE + WD_BM * WD_APAD + tx * 4;
+#pragma unroll
+      for (int q = 0; q < WD_BK; q += 4) {
+        float a[WD_TM][4];
+#pragma unroll
+        for (int i = 0; i < WD_TM; ++i) {
+          const float4 v = *reinterpret_cast<const float4*>(As + i * WD_APAD + q);
+          a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
+        }
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float4 b0 = *reinterpret_cast<const float4*>(Bs + (q + t) * WD_BN);
+          const float4 b1 = *reinterpret_cast<const float4*>(Bs + (q + t) * WD_BN + WD_BN / 2);
+          const float b[WD_TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+          for (int i = 0; i < WD_TM; ++i)
+#pragma unroll
+            for (int j = 0; j < WD_TN; ++j) acc[i][j] = fmaf(a[i][t], b[j], acc[i][j]);
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free for the next unit
+
+#pragma unroll
+    for (int i = 0; i < WD_TM; ++i) {
+      const int r = ty * WD_TM + i;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = h * (WD_BN / 2) + tx * 4;
+        if (slot >= 0) {  // a partial: the whole tile, unmasked
+          *reinterpret_cast<float4*>(ws + static_cast<size_t>(slot) * WD_TILE + r * WD_BN + c) =
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+        } else if (row0 + r < n) {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int gc = col0 + c + jj;
+            if (gc < m) out[static_cast<size_t>(row0 + r) * m + gc] = acc[i][4 * h + jj];
+          }
+        }
+      }
     }
   }
 }
 
-template <int BM, int BN, int BK, int TM, int TN>
-void launch(const float* L, const float* W, float* out, int n, int m,
-            cudaStream_t stream) {
-  const dim3 grid((m + BN - 1) / BN, (n + BM - 1) / BM);
-  const dim3 block((BM / TM) * (BN / TN));
-  tri_matmul_kernel<BM, BN, BK, TM, TN><<<grid, block, 0, stream>>>(L, W, out, n, m);
+// fixups: (row tile, column tile, first slot, slot count); one block a tile
+// adds its partials in slot order.
+__global__ void __launch_bounds__(WD_THREADS)
+tri_wide_fixup_kernel(const float* __restrict__ ws, float* __restrict__ out,
+                      const int* __restrict__ fixups, int n, int m) {
+  const int* f = fixups + 4 * blockIdx.x;
+  const int row0 = f[0] * WD_BM, col0 = f[1] * WD_BN, slot0 = f[2], count = f[3];
+  for (int e = threadIdx.x; e < WD_TILE; e += WD_THREADS) {
+    const int gr = row0 + e / WD_BN, gc = col0 + e % WD_BN;
+    if (gr >= n || gc >= m) continue;
+    float s = ws[static_cast<size_t>(slot0) * WD_TILE + e];
+    for (int q = 1; q < count; ++q) s += ws[static_cast<size_t>(slot0 + q) * WD_TILE + e];
+    out[static_cast<size_t>(gr) * m + gc] = s;
+  }
+}
+
+template <bool VEC>
+int launch_wide(const float* L, const float* W, float* out, float* ws, const int* units,
+                const int* block_start, int n_blocks, const int* fixups, int n_fixups, int n,
+                int m, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(tri_wide_kernel<VEC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, WD_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tri_wide_kernel<VEC><<<n_blocks, WD_THREADS, WD_SMEM, stream>>>(L, W, out, ws, units,
+                                                                   block_start, n, m);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_fixups == 0) return static_cast<int>(err);
+  tri_wide_fixup_kernel<<<n_fixups, WD_THREADS, 0, stream>>>(ws, out, fixups, n, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool vec_ok(const void* L, const void* W, int n, int m) {
+  return n % 4 == 0 && m % 4 == 0 && reinterpret_cast<uintptr_t>(L) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(W) % 16 == 0;
 }
 
 }  // namespace
 
-// out (n, m) = L (n, n) @ W (n, m); all fp32, row-major, contiguous, on the
-// current device. Returns the cudaError_t of the launch (0 on success).
-extern "C" int bndm_tri_matmul_f32(const void* L, const void* W, void* out,
-                                   int n, int m, void* stream) {
+// out (n, m) = L (n, n) @ W (n, m) for m <= 64; all fp32, row-major,
+// contiguous, on the current device. pairs: n_pairs x 2 int32 row blocks
+// (short, long) of 16 rows, short -1 for none. Returns the launch's
+// cudaError_t (0 on success).
+extern "C" int bndm_tri_matmul_skinny_f32(const void* L, const void* W, void* out,
+                                          const void* pairs, int n_pairs, int n, int m,
+                                          void* stream) {
   const auto* l = static_cast<const float*>(L);
   const auto* w = static_cast<const float*>(W);
   auto* o = static_cast<float*>(out);
+  const auto* p = static_cast<const int*>(pairs);
   auto s = static_cast<cudaStream_t>(stream);
-  if (m <= 16) {
-    launch<32, 16, 64, 2, 1>(l, w, o, n, m, s);
-  } else {
-    launch<64, 64, 16, 4, 4>(l, w, o, n, m, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return vec_ok(L, W, n, m) ? dispatch_skinny<true>(l, w, o, p, n_pairs, n, m, s)
+                            : dispatch_skinny<false>(l, w, o, p, n_pairs, n, m, s);
+}
+
+// The same product for any m through the wide schedule: units (5 int32
+// each), block_start (n_blocks + 1), fixups (4 int32 each) and the scratch
+// ws (one 128 x 128 fp32 tile per slot). Returns the last cudaError_t.
+extern "C" int bndm_tri_matmul_wide_f32(const void* L, const void* W, void* out, void* ws,
+                                        const void* units, const void* block_start,
+                                        int n_blocks, const void* fixups, int n_fixups, int n,
+                                        int m, void* stream) {
+  const auto* l = static_cast<const float*>(L);
+  const auto* w = static_cast<const float*>(W);
+  auto* o = static_cast<float*>(out);
+  auto* scratch = static_cast<float*>(ws);
+  const auto* u = static_cast<const int*>(units);
+  const auto* b = static_cast<const int*>(block_start);
+  const auto* f = static_cast<const int*>(fixups);
+  auto s = static_cast<cudaStream_t>(stream);
+  return vec_ok(L, W, n, m)
+             ? launch_wide<true>(l, w, o, scratch, u, b, n_blocks, f, n_fixups, n, m, s)
+             : launch_wide<false>(l, w, o, scratch, u, b, n_blocks, f, n_fixups, n, m, s);
 }

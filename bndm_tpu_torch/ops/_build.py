@@ -71,10 +71,10 @@ def build_all(names=None):
     names = sources() if names is None else list(names)
     jobs = {name: _start(name) for name in names}
     try:
-        for name, job in jobs.items():
+        for name in list(jobs):
+            job = jobs.pop(name)  # _finish cleans up after itself, even if it raises
             if job is not None:
                 _finish(name, job)
-                jobs[name] = None
     finally:
         for job in jobs.values():  # stop what is left after a failure
             if job is not None:

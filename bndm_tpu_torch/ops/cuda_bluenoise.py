@@ -19,6 +19,7 @@ one to the other: a CUDA call launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -46,39 +47,146 @@ def _check(L, W):
         raise ValueError("tri_matmul indexes with 32-bit rows and columns")
 
 
-def _kernel():
+# K1 has two designs (csrc/tri_matmul.cu): "skinny" for M <= SKINNY_MAX_M,
+# bound by L's bytes, and "wide", bound by fp32 FMAs. The skinny kernel takes
+# M up to 64; the sweep of chip_smoke.py phase 3 on an H100 found it faster
+# than the wide one all the way there (PERF.md), so the crossover is its limit.
+SKINNY_MAX_M = 64
+SKINNY_BM = 16  # rows of a skinny row block; a block takes a pair of them
+WIDE_TILE = 128  # rows and columns of a wide output tile
+WIDE_BK = 32  # K per step of the wide kernel (WD_BK): the unit of its schedule
+
+
+def skinny_pairs(n):
+    """(P, 2) int32: the row blocks (short, long) = (i, nb-1-i) of
+    :data:`SKINNY_BM` rows that skinny block i takes, nb = ceil(n / 16).
+    Row block i reads (i+1) * 16 columns of L, so every pair reads about
+    (nb+1) * 16: the triangle is spread evenly. The middle block of an odd
+    nb is alone (short = -1)."""
+    nb = -(-n // SKINNY_BM)
+    return torch.tensor([(i if i != nb - 1 - i else -1, nb - 1 - i)
+                         for i in range(-(-nb // 2))], dtype=torch.int32)
+
+
+def wide_schedule(n, m, blocks):
+    """The wide kernel's work list for a persistent grid of ``blocks``.
+
+    Every output tile (row tile ti, column tile tj) of 128 x 128 needs
+    ceil(min(n, 128 (ti+1)) / 32) K steps (the triangular bound). The tiles'
+    steps, ti-major, are laid end to end and cut into ``G = min(blocks,
+    total)`` contiguous ranges of equal length (+-1 step): block b's share.
+    Returns int32 tensors
+
+      * ``units`` (U, 5): (ti, tj, k_lo, k_hi, slot), a block's piece of one
+        tile; slot -1 if the piece is the whole tile (written to the output),
+        else its partial's scratch slot;
+      * ``block_start`` (G + 1,): block b walks units[block_start[b] :
+        block_start[b+1]];
+      * ``fixups`` (F, 4): (ti, tj, first slot, count) for every tile cut
+        between blocks, whose partials are added in slot order;
+
+    and the number of slots.
+    """
+    steps = [(ti, tj, -(-min(n, WIDE_TILE * (ti + 1)) // WIDE_BK))
+             for ti in range(-(-n // WIDE_TILE)) for tj in range(-(-m // WIDE_TILE))]
+    total = sum(s for _, _, s in steps)
+    g = max(1, min(blocks, total))
+    cuts = [b * total // g for b in range(g + 1)]
+    units, fixups, block_start = [], [], [0]
+    b = pos = n_slots = 0  # pos: the first step of the current tile
+    for ti, tj, s in steps:
+        lo, pieces = pos, []
+        while lo < pos + s:
+            while cuts[b + 1] <= lo:  # block b is full: the next starts here
+                b += 1
+                block_start.append(len(units) + len(pieces))
+            hi = min(pos + s, cuts[b + 1])
+            pieces.append((lo - pos, hi - pos))
+            lo = hi
+        split = len(pieces) > 1
+        for i, (a, z) in enumerate(pieces):
+            units.append((ti, tj, a * WIDE_BK, min(n, z * WIDE_BK), n_slots + i if split else -1))
+        if split:
+            fixups.append((ti, tj, n_slots, len(pieces)))
+            n_slots += len(pieces)
+        pos += s
+    block_start += [len(units)] * (g + 1 - len(block_start))
+
+    def int32(rows, width):
+        return torch.tensor(rows, dtype=torch.int32).reshape(-1, width)
+
+    return int32(units, 5), torch.tensor(block_start, dtype=torch.int32), int32(fixups, 4), n_slots
+
+
+@functools.cache
+def _schedule_on(device, n, m, regime):
+    """The schedule tensors of one shape, made once and kept on ``device``."""
+    if regime == "skinny":
+        return (skinny_pairs(n).to(device),)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    units, starts, fixups, n_slots = wide_schedule(n, m, sms)
+    return units.to(device), starts.to(device), fixups.to(device), n_slots
+
+
+@functools.cache
+def _kernels():
     from bndm_tpu_torch.ops import _build
 
     lib = _build.load("tri_matmul")
-    fn = lib.bndm_tri_matmul_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    p, i = ctypes.c_void_p, ctypes.c_int
+    skinny, wide = lib.bndm_tri_matmul_skinny_f32, lib.bndm_tri_matmul_wide_f32
+    skinny.argtypes = [p, p, p, p, i, i, i, p]
+    wide.argtypes = [p, p, p, p, p, p, i, p, i, i, i, p]
+    skinny.restype = wide.restype = ctypes.c_int
+    return skinny, wide
+
+
+def _launch(L, W, regime):
+    """One K1 call on the card in the named design ("skinny", for M <=
+    :data:`SKINNY_MAX_M`, or "wide"), uncounted: :func:`tri_matmul` chooses
+    and counts; chip_smoke.py times both designs across the sweep through
+    this."""
+    n, m = W.shape
+    if regime not in ("skinny", "wide") or (regime == "skinny" and m > SKINNY_MAX_M):
+        raise ValueError(f"no {regime!r} design of K1 for M = {m}")
+    out = torch.empty((n, m), device=W.device, dtype=torch.float32)
+    skinny, wide = _kernels()
+    sched = _schedule_on(W.device, n, m, regime)
+    with torch.cuda.device(W.device):
+        stream = torch.cuda.current_stream(W.device).cuda_stream
+        if regime == "skinny":
+            (pairs,) = sched
+            err = skinny(L.data_ptr(), W.data_ptr(), out.data_ptr(), pairs.data_ptr(),
+                         pairs.shape[0], n, m, stream)
+        else:
+            units, starts, fixups, n_slots = sched
+            ws = torch.empty((max(n_slots, 1), WIDE_TILE * WIDE_TILE), device=W.device,
+                             dtype=torch.float32)
+            err = wide(L.data_ptr(), W.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                       units.data_ptr(), starts.data_ptr(), starts.shape[0] - 1,
+                       fixups.data_ptr(), fixups.shape[0], n, m, stream)
+    if err != 0:
+        raise RuntimeError(f"tri_matmul ({regime}) kernel launch failed with CUDA error {err}")
+    return out
 
 
 def tri_matmul(L, W):
     """``out = L @ W`` for a LOWER-TRIANGULAR fp32 L (n, n) and W (n, M).
 
-    The CUDA kernel reads only the lower triangle of L (it multiplies through
-    the zeros of the diagonal tiles and skips the tiles above them), so an L
-    with nonzeros above the diagonal gives a wrong result there. CPU tensors
-    go to :func:`tri_matmul_plain`; ``tri_matmul.launches`` counts kernel
-    launches.
+    The CUDA kernels read only the lower triangle of L (they multiply through
+    the zeros of the diagonal tiles and skip the tiles above them), so an L
+    with nonzeros above the diagonal gives a wrong result there. M <=
+    :data:`SKINNY_MAX_M` takes the skinny design, wider M the wide one; both
+    give the same bits run to run. CPU tensors go to
+    :func:`tri_matmul_plain`; ``tri_matmul.launches`` counts calls on the
+    card (one each, whatever kernels the call launches).
     """
     _check(L, W)
     if L.device.type == "cpu":
         return tri_matmul_plain(L, W)
     if L.device.type != "cuda":
         raise ValueError(f"tri_matmul runs on cuda or cpu, not {L.device}")
-    n, m = W.shape
-    out = torch.empty((n, m), device=W.device, dtype=torch.float32)
-    fn = _kernel()
-    with torch.cuda.device(W.device):
-        stream = torch.cuda.current_stream(W.device).cuda_stream
-        err = fn(L.data_ptr(), W.data_ptr(), out.data_ptr(), n, m, stream)
-    if err != 0:
-        raise RuntimeError(f"tri_matmul kernel launch failed with CUDA error {err}")
+    out = _launch(L, W, "skinny" if W.shape[1] <= SKINNY_MAX_M else "wide")
     tri_matmul.launches += 1
     return out
 

@@ -13,8 +13,11 @@ scripts, which measure how fast a hand-written kernel streams bytes:
     one persistent block per SM, a ring of shared-memory stages filled by
     1-D bulk TMA copies that complete on mbarriers, and bulk stores.
   * P3, :func:`nhwc_add_one` (``pallas_copy``,
-    scripts/bench_elementwise_tpu.py:69-87): an NHWC (B, H, W, C) tensor,
-    :data:`IMAGES_PER_BLOCK` images per program, a Triton kernel.
+    scripts/bench_elementwise_tpu.py:69-87): an NHWC (B, H, W, C) tensor, a
+    Triton kernel. The TPU kernel's unit, 2 whole images (2 MiB) a program,
+    split 250 programs unevenly over 132 SMs and left each program's loads
+    and stores in turn; the card's design is an oversubscribed grid of one
+    small tile a program with streaming cache hints (:data:`P3_SWEEP`).
 
 Bound, the same for all three: the function reads its input once and
 writes its output once, so at the benches' full shape (256000 x 1024 or
@@ -42,9 +45,8 @@ import torch
 
 _ALIGN = 16  # bytes: bulk copies and 16-byte vector accesses need it
 MAX_COLS = 16384  # P1's sub-tile is (BLOCK_R, next power of 2 >= n_cols)
-_TILE_ELEMS = 16384  # elements per Triton sub-tile: 64 a thread at 8 warps
+_TILE_ELEMS = 16384  # elements per P1 sub-tile: 64 a thread at 8 warps
 _WARPS = 8
-IMAGES_PER_BLOCK = 2  # P3's block, the TPU kernel's ``tb``
 
 
 def add_one_plain(y):
@@ -138,33 +140,46 @@ def _p3_kernel():
     import triton.language as tl
 
     @triton.jit
-    def p3_add_one(x_ptr, y_ptr, n, per_block, BLOCK: tl.constexpr):
-        # a block of whole images is one contiguous range of the NHWC tensor
-        start = tl.program_id(0).to(tl.int64) * per_block
-        end = tl.minimum(start + per_block, n)
-        lanes = tl.arange(0, BLOCK)
-        for s in range(start, end, BLOCK):  # register-sized sub-tiles
-            offs = s + lanes
-            mask = offs < end
+    def p3_add_one(x_ptr, y_ptr, n, BLOCK: tl.constexpr, STREAMING: tl.constexpr):
+        # one tile of the flat tensor a program; NHWC is contiguous
+        offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+        mask = offs < n
+        if STREAMING:  # nothing is read twice: do not keep it in L2
+            x = tl.load(x_ptr + offs, mask=mask, eviction_policy="evict_first")
+            tl.store(y_ptr + offs, (x.to(tl.float32) + 1.0).to(tl.bfloat16), mask=mask,
+                     cache_modifier=".cs")
+        else:
             x = tl.load(x_ptr + offs, mask=mask)
             tl.store(y_ptr + offs, (x.to(tl.float32) + 1.0).to(tl.bfloat16), mask=mask)
 
     return p3_add_one
 
 
-def nhwc_add_one(y):
-    """P3: ``y + 1`` for a contiguous NHWC (B, H, W, C) bf16 ``y``, one
-    program per :data:`IMAGES_PER_BLOCK` images."""
+# P3's sweep (chip_smoke.py phase 5): (tile KiB, warps, streaming hints). At
+# 4 warps a thread loads 16 B x 2 (4 KiB), x 4 (8 KiB) or x 8 (16 KiB).
+P3_SWEEP = ((4, 4, True), (2, 4, True), (8, 4, True), (4, 4, False))
+P3_DEFAULT = (4, 4, True)
+
+
+def nhwc_add_one(y, tile_kib=P3_DEFAULT[0], warps=P3_DEFAULT[1], streaming=P3_DEFAULT[2]):
+    """P3: ``y + 1`` for a contiguous NHWC (B, H, W, C) bf16 ``y``: one
+    program per ``tile_kib`` KiB of the flat tensor, ``warps`` warps each;
+    ``streaming`` marks the loads evict-first and the stores streaming
+    (``.cs``). The grid oversubscribes the SMs, so while one program waits
+    on its loads another's stores drain."""
     _check(y, 4, "nhwc_add_one")
+    if tile_kib < 1 or tile_kib & (tile_kib - 1):
+        raise ValueError(f"tile_kib must be a power of 2, got {tile_kib}")
+    if warps not in (1, 2, 4, 8, 16):
+        raise ValueError(f"warps is a power of 2 up to 16, not {warps}")
     if y.device.type == "cpu":
         return add_one_plain(y)
     kernel = _p3_kernel()
-    b = y.shape[0]
-    per_block = IMAGES_PER_BLOCK * (y.numel() // b)
+    block = tile_kib * 1024 // y.element_size()
     out = torch.empty_like(y)
     with torch.cuda.device(y.device):
-        kernel[(-(-b // IMAGES_PER_BLOCK),)](y, out, y.numel(), per_block,
-                                             BLOCK=_TILE_ELEMS, num_warps=_WARPS)
+        kernel[(-(-y.numel() // block),)](y, out, y.numel(), BLOCK=block,
+                                          STREAMING=bool(streaming), num_warps=warps)
     nhwc_add_one.launches += 1
     return out
 

@@ -9,9 +9,11 @@ PyTorch version:
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every kernel under bndm_tpu_torch/csrc, one nvcc each, at once;
-  3. K1 (tri_matmul) against fp64 and its plain version at M = 12, 7, 1500,
-     on a random lower-triangular L and on the generated blue-noise L, with
-     its time beside the plain version's, torch.matmul's and the bound;
+  3. K1 (tri_matmul) against fp64 and its plain version over the M sweep
+     1-1500 on a random lower-triangular L and on the generated blue-noise
+     L, the same bits from a second call; both of its designs timed at each
+     M (the crossover); then K1 against torch.matmul in alternating turns
+     at M = 12, 768 and 1500, beside its plain version and the bound;
   4. K2 (fused_bluenoise_flat) against its plain version and fp64 at
      M = 192, 7, 1500 on both L, the exact mix, the white noise's moments,
      determinism, and K3's gamma gradient; its time beside the plain
@@ -20,7 +22,8 @@ PyTorch version:
   5. the streaming probes P1-P3 (y + 1 in bf16) bitwise against their
      plain version at the full and ragged shapes, on edge values, every
      variant of the bench's sweep; their times beside torch.add's and the
-     bound; then both bench entry points (bndm_tpu_torch.scripts.
+     bound, P3's variants and torch.add in alternating turns; then both
+     bench entry points (bndm_tpu_torch.scripts.
      bench_stream and bench_elementwise) at their full shapes;
   6. the noise engine (gaussianBN, inplace) at res 32, 64, 128 on CUDA and
      on the CPU, all three outputs compared;
@@ -159,10 +162,10 @@ def read_launches():
     return {name: fn.launches for name, fn in _counted().items()}
 
 
-def time_ms(torch, fn, iters, flush):
-    """Median device time of ``fn`` over ``iters`` launches, each timed by
-    its own CUDA events with the L2 cache flushed before it (a served
-    request finds L cold: 250 UNet steps run between two draws)."""
+def launch_times(torch, fn, iters, flush):
+    """Device times (ms) of ``iters`` launches of ``fn``, each timed by its
+    own CUDA events with the L2 cache flushed before it (a served request
+    finds L cold: 250 UNet steps run between two draws)."""
     fn()
     torch.cuda.synchronize()
     pairs = []
@@ -174,8 +177,30 @@ def time_ms(torch, fn, iters, flush):
         e.record()
         pairs.append((s, e))
     torch.cuda.synchronize()
-    ts = sorted(s.elapsed_time(e) for s, e in pairs)
-    return ts[len(ts) // 2]
+    return [s.elapsed_time(e) for s, e in pairs]
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def time_ms(torch, fn, iters, flush):
+    """Median of :func:`launch_times`."""
+    return median(launch_times(torch, fn, iters, flush))
+
+
+def alternating(fns, turns, timer):
+    """Median time of each of ``fns`` (name -> fn), timed in turns a, b, b,
+    a (the dict's order, then reversed), ``turns`` times over, so that
+    drift in the card's clock falls on all of them alike. ``timer(fn)``
+    returns a list of times."""
+    order = list(fns)
+    times = {name: [] for name in order}
+    for _ in range(turns):
+        for name in order + order[::-1]:
+            times[name] += timer(fns[name])
+    return {name: median(ts) for name, ts in times.items()}
 
 
 @contextlib.contextmanager
@@ -271,44 +296,83 @@ def run_cli(argv):
     return tee.buf.getvalue()
 
 
+K1_SWEEP = (1, 7, 12, 24, 48, 96, 192, 768, 1500)  # 12: super-res; 768: res-128 train step
+K1_TIMED = (12, 768, 1500)  # 1500: a res-64 gallery batch of 500
+
+
 def phase_k1(torch, L_blue, peak, flush):
-    from bndm_tpu_torch.ops.cuda_bluenoise import tri_matmul, tri_matmul_plain
+    """K1 over the M sweep on a random and on the blue-noise L: within TOL of
+    fp64 and of its plain version, the same bits from a second call. On the
+    blue L, each design's time at each M (the crossover), then K1 against
+    torch.matmul in alternating turns at the main path's shapes."""
+    from bndm_tpu_torch.ops.cuda_bluenoise import (SKINNY_MAX_M, _launch, tri_matmul,
+                                                   tri_matmul_plain)
 
     n = L_blue.shape[0]
     g = torch.Generator().manual_seed(0)
     L_rand = torch.tril(torch.randn(n, n, generator=g) * 0.02)  # tests/conftest.py small_L
     L_rand.fill_diagonal_(1.0)
-    rows = []
     worst_plain = worst_fp64 = 0.0
+    sweep = []
     for lname, L in (("random", L_rand.cuda()), ("blue", L_blue)):
-        for m in (12, 7, 1500):
+        for m in K1_SWEEP:
             W = torch.randn(n, m, generator=g).cuda()
-            out = tri_matmul(L, W)
+            out, again = tri_matmul(L, W), tri_matmul(L, W)
             torch.cuda.synchronize()
+            same = torch.equal(out, again)
             ref = L.double() @ W.double()
             plain = tri_matmul_plain(L, W)
             e64 = (out.double() - ref).abs().max().item()
             ep = (out - plain).abs().max().item()
-            ok64 = torch.allclose(out.double(), ref, rtol=TOL, atol=TOL)
-            okp = torch.allclose(out, plain, rtol=TOL, atol=TOL)
+            ok = (torch.allclose(out.double(), ref, rtol=TOL, atol=TOL)
+                  and torch.allclose(out, plain, rtol=TOL, atol=TOL))
             log(f"K1 L={lname} M={m}: max|err| vs fp64 {e64:.3e}, vs plain {ep:.3e} "
-                f"(rtol=atol={TOL}) {'ok' if ok64 and okp else 'FAIL'}")
-            check(ok64 and okp, f"K1 disagrees at L={lname} M={m}")
+                f"(rtol=atol={TOL}) {'ok' if ok else 'FAIL'}; second call "
+                f"{'the same bits' if same else 'OTHER BITS'}")
+            check(ok, f"K1 disagrees at L={lname} M={m}")
+            check(same, f"K1 is not deterministic at L={lname} M={m}")
             worst_plain, worst_fp64 = max(worst_plain, ep), max(worst_fp64, e64)
-            if lname != "blue":
-                continue
-            iters = 50 if m < 100 else 20
-            ms = time_ms(torch, lambda: tri_matmul(L, W), iters, flush)
-            plain_ms = time_ms(torch, lambda: tri_matmul_plain(L, W), iters, flush)
-            lib_ms = time_ms(torch, lambda: torch.matmul(L, W), iters, flush)
-            bound_ms, bound_by = k1_bound(n, m, *peak)
-            rows.append({"m": m, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by,
-                         "max_abs_err": ep, "max_abs_err_fp64": e64})
-            log(f"K1 M={m} times (median, L2 flushed): kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by})")
-    return rows, worst_plain, worst_fp64
+            if lname == "blue":  # both designs, for the crossover
+                row = {"m": m, "design": "skinny" if m <= SKINNY_MAX_M else "wide",
+                       "max_abs_err": ep, "max_abs_err_fp64": e64}
+                for design in ("skinny", "wide"):
+                    if design == "wide" or m <= SKINNY_MAX_M:
+                        row[f"{design}_ms"] = time_ms(torch, lambda: _launch(L, W, design), 20,
+                                                      flush)
+                row["matmul_ms"] = time_ms(torch, lambda: torch.matmul(L, W), 20, flush)
+                sweep.append(row)
+                log(f"K1 M={m} designs (median, L2 flushed): skinny "
+                    f"{row.get('skinny_ms', float('nan')):.4f} ms, wide {row['wide_ms']:.4f} "
+                    f"ms, torch.matmul {row['matmul_ms']:.4f} ms; takes {row['design']}")
+
+    rows = []
+    for m in K1_TIMED:
+        W = torch.randn(n, m, generator=g).cuda()
+        iters = 10 if m < 100 else 5
+        turns = alternating({"library": lambda: torch.matmul(L_blue, W),
+                             "kernel": lambda: tri_matmul(L_blue, W)}, 5,
+                            lambda fn: launch_times(torch, fn, iters, flush))
+        plain_ms = time_ms(torch, lambda: tri_matmul_plain(L_blue, W), 10, flush)
+        bound_ms, bound_by = k1_bound(n, m, *peak)
+        s = next(r for r in sweep if r["m"] == m)
+        rows.append({"m": m, "design": s["design"], "ms": turns["kernel"],
+                     "library_ms": turns["library"], "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "bound_share": bound_ms / turns["kernel"],
+                     "max_abs_err": s["max_abs_err"], "max_abs_err_fp64": s["max_abs_err_fp64"]})
+        log(f"K1 M={m} times (median of 5 alternating turns, L2 flushed): kernel "
+            f"{turns['kernel']:.4f} ms ({s['design']}), torch.matmul {turns['library']:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{100 * bound_ms / turns['kernel']:.1f} % of the bound")
+    # what this timing charges any launch, and what one library call takes
+    # to read the triangle's bytes
+    one = torch.zeros(1, device="cuda")
+    empty_ms = time_ms(torch, lambda: one.zero_(), 20, flush)
+    tri = L_blue.view(-1)[: n * (n + 1) // 2]
+    floor_ms = time_ms(torch, lambda: tri.sum(), 20, flush)
+    log(f"K1 yardsticks (median, L2 flushed): a launch that writes 4 bytes {empty_ms:.4f} ms; "
+        f"torch.sum over the triangle's {4 * tri.numel()} bytes (contiguous) {floor_ms:.4f} ms")
+    extra = {"crossover_m": SKINNY_MAX_M, "stream_floor_ms": floor_ms, "empty_launch_ms": empty_ms}
+    return rows, sweep, extra, worst_plain, worst_fp64
 
 
 def phase_k2(torch, L_blue, peak, flush):
@@ -444,13 +508,21 @@ def _bitwise(torch, got, want):
     return same, err
 
 
+P3_TURNS = 5
+
+
+def p3_name(variant):
+    kib, warps, streaming = variant
+    return f"{kib} KiB x {warps} warps" + (", streaming" if streaming else "")
+
+
 def phase_probes(torch, peak_bytes):
     """P1-P3 bitwise against add_one_plain at the full and ragged shapes;
     their times (CUDA events over ``inner`` chained passes) beside the
     plain version's, torch.add's and the bytes bound; then the two bench
     entry points at their full shapes, the launch counts reset before."""
-    from bndm_tpu_torch.ops.stream_probes import (add_one_plain, dma_add_one, nhwc_add_one,
-                                                  stream_add_one)
+    from bndm_tpu_torch.ops.stream_probes import (P3_DEFAULT, P3_SWEEP, add_one_plain,
+                                                  dma_add_one, nhwc_add_one, stream_add_one)
     from bndm_tpu_torch.scripts import bench_elementwise, bench_stream
     from bndm_tpu_torch.utils.timing import pass_ms
 
@@ -460,7 +532,7 @@ def phase_probes(torch, peak_bytes):
                        for rpb in bench_stream.ROWS_PER_BLOCK for sched in bench_stream.SCHEDULES],
                 "P2": [(f"{c // 1024} KiB x {st} stages", lambda y, c=c, st=st: dma_add_one(y, c, st))
                        for c, st in bench_stream.DMA_SWEEP],
-                "P3": [("2 images per block", nhwc_add_one)]}
+                "P3": [(p3_name(v), lambda y, v=v: nhwc_add_one(y, *v)) for v in P3_SWEEP]}
     full = {"P1": (256000, 1024), "P2": (256000, 1024), "P3": (500, 64, 64, 128)}
     ragged = {"P1": [(257, 1024), (5, 1001)], "P2": [(257, 1024), (5, 1001), (3, 13)],
               "P3": [(3, 8, 8, 128), (3, 5, 7, 9)]}
@@ -479,20 +551,28 @@ def phase_probes(torch, peak_bytes):
         moved = 2 * x.numel() * x.element_size()
         bound_ms = moved / peak_bytes * 1e3
         plain_ms = pass_ms(add_one_plain, x, inner)
-        lib_ms = pass_ms(lambda y: torch.add(y, 1), x, inner)
-        by_variant = []
-        for vname, fn in vs:
-            ms = pass_ms(fn, x, inner)
-            by_variant.append({"variant": vname, "ms": ms})
-            log(f"{p} {vname} at {full[p]}: {ms:.4f} ms, {moved / ms / 1e6:.1f} GB/s, "
-                f"{100 * bound_ms / ms:.1f} % of the bound")
-        best = min(by_variant, key=lambda r: r["ms"])
-        rows[p] = dict(best, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                       gb_s=moved / best["ms"] / 1e6, max_abs_err=worst[p],
+        if p == "P3":  # torch.add, then each variant, then back
+            turns = alternating({"torch.add": lambda y: torch.add(y, 1), **dict(vs)}, P3_TURNS,
+                                lambda fn: [pass_ms(fn, x, inner)])
+            lib_ms = turns.pop("torch.add")
+            by_variant = [{"variant": vname, "ms": ms} for vname, ms in turns.items()]
+            main = next(r for r in by_variant if r["variant"] == p3_name(P3_DEFAULT))
+        else:
+            lib_ms = pass_ms(lambda y: torch.add(y, 1), x, inner)
+            by_variant = [{"variant": vname, "ms": pass_ms(fn, x, inner)} for vname, fn in vs]
+            main = min(by_variant, key=lambda r: r["ms"])
+        for r in by_variant:
+            log(f"{p} {r['variant']} at {full[p]}: {r['ms']:.4f} ms, "
+                f"{moved / r['ms'] / 1e6:.1f} GB/s, {100 * bound_ms / r['ms']:.1f} % of the "
+                f"bound, {r['ms'] / lib_ms:.3f}x torch.add")
+        rows[p] = dict(main, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                       gb_s=moved / main["ms"] / 1e6, max_abs_err=worst[p],
                        shape=str(full[p]), by_variant=by_variant)
-        log(f"{p} times ({inner} chained passes, CUDA events): best {best['ms']:.4f} ms "
-            f"({best['variant']}), plain {plain_ms:.4f} ms, torch.add {lib_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms (bytes)")
+        how = (f"medians of {P3_TURNS} alternating turns, the default variant" if p == "P3"
+               else "the best variant")
+        log(f"{p} times ({inner} chained passes, CUDA events; {how}): {main['ms']:.4f} ms "
+            f"({main['variant']}), plain {plain_ms:.4f} ms, torch.add {lib_ms:.4f} ms "
+            f"({main['ms'] / lib_ms:.3f}x), bound {bound_ms:.4f} ms (bytes)")
         del x
 
     reset_launches()
@@ -810,7 +890,7 @@ def main():
         flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB > L2
 
         # 3-4. K1, K2 and K3
-        rows, err_plain, err_fp64 = phase_k1(torch, L_blue, peak, flush)
+        rows, k1_sweep, k1_extra, err_plain, err_fp64 = phase_k1(torch, L_blue, peak, flush)
         k2_rows, k2_err, k3_err, k3_rows = phase_k2(torch, L_blue, peak, flush)
         del flush
         # 5. the streaming probes and their bench entry points
@@ -848,8 +928,13 @@ def main():
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "library": "torch.matmul(L, W)",
         "shape": "L (4096, 4096) @ W (4096, 12)",
+        "design": main_row["design"],
+        **k1_extra,
+        "stream_floor": "torch.sum over the triangle's 33.6 MB, contiguous",
         "by_m": rows,
+        "sweep": k1_sweep,
     }, {
         "name": "fused_bluenoise",
         "route": "cuda",

@@ -59,6 +59,60 @@ def test_tri_matmul_small_and_odd_n():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 7, 12, 24, 48, 96, 192, 768, 1500])
+def test_tri_matmul_m_sweep_is_right_and_deterministic(m):
+    """K1 over the M sweep of chip_smoke.py phase 3 (both designs): within
+    2e-5 of fp64 and of the plain version, and the same bits on a second
+    call (no float atomics, fixed summation order)."""
+    _cuda_or_skip()
+    L = _random_L(4096, 100 + m)
+    w = torch.randn(4096, m, generator=torch.Generator().manual_seed(m)).cuda()
+    got = tri_matmul(L, w)
+    again = tri_matmul(L, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.double(), L.double() @ w.double(), rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got, tri_matmul_plain(L, w), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("side,regime", [(0, "skinny"), (0, "wide"), (1, "wide")])
+def test_tri_matmul_both_designs_at_the_crossover(side, regime):
+    """Both designs at M = SKINNY_MAX_M and the wide one just past it, each
+    within 2e-5 of fp64 and uncounted; tri_matmul takes the skinny design up
+    to the crossover and the wide one past it (the same bits)."""
+    from bndm_tpu_torch.ops.cuda_bluenoise import SKINNY_MAX_M, _launch
+
+    _cuda_or_skip()
+    m = SKINNY_MAX_M + side
+    L = _random_L(4096, 7)
+    w = torch.randn(4096, m, generator=torch.Generator().manual_seed(8)).cuda()
+    before = tri_matmul.launches
+    got = _launch(L, w, regime)
+    torch.cuda.synchronize()
+    assert tri_matmul.launches == before
+    torch.testing.assert_close(got.double(), L.double() @ w.double(), rtol=2e-5, atol=2e-5)
+    if regime == ("skinny" if side == 0 else "wide"):
+        assert torch.equal(tri_matmul(L, w), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regime", ["skinny", "wide"])
+def test_tri_matmul_designs_mask_ragged_shapes(regime):
+    """Each design on n, M not multiples of 4 or of a tile (the 4-byte copy
+    path), a misaligned W (a view 4 bytes in) and a tile cut between blocks."""
+    from bndm_tpu_torch.ops.cuda_bluenoise import _launch
+
+    _cuda_or_skip()
+    g = torch.Generator().manual_seed(9)
+    for n, m in [(1, 1), (33, 5), (257, 16), (1000, 33), (130, 64), (4093, 3)]:
+        L = _random_L(n, n)
+        w = torch.randn(n * m + 1, generator=g).cuda()[1:].view(n, m)
+        torch.testing.assert_close(_launch(L, w, regime).double(), L.double() @ w.double(),
+                                   rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
 def test_tri_matmul_rejects_mixed_devices():
     _cuda_or_skip()
     with pytest.raises(ValueError):
@@ -317,3 +371,17 @@ def test_nhwc_add_one_kernel_is_bitwise_plain(shape):
     torch.cuda.synchronize()
     assert nhwc_add_one.launches == before + 1
     _assert_bits(got, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", [0, 1, 2, 3])
+@pytest.mark.parametrize("shape", [(3, 8, 8, 128), (3, 5, 7, 9), (500, 64, 64, 128)])
+def test_nhwc_add_one_sweep_is_bitwise_plain(variant, shape):
+    """Every P3 variant of the sweep (tile size, warps, cache hints) equals
+    add_one_plain bit for bit at the bench's full shape and at ragged ones
+    (a last tile that is mostly mask)."""
+    from bndm_tpu_torch.ops.stream_probes import P3_SWEEP, nhwc_add_one
+
+    _cuda_or_skip()
+    x = _edge_bf16(shape, 2)
+    _assert_bits(nhwc_add_one(x, *P3_SWEEP[variant]), x)

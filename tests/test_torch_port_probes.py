@@ -66,12 +66,14 @@ WRAPPERS = {
     "P1 persistent": lambda y: sp.stream_add_one(y, 1024, "persistent"),
     "P2": lambda y: sp.dma_add_one(y, 16384, 2),
     "P3": sp.nhwc_add_one,
+    "P3 2 KiB, no hints": lambda y: sp.nhwc_add_one(y, 2, 4, False),
 }
 
 
 @pytest.mark.parametrize("name,shape", [
     ("plain", (257, 1024)), ("P1 parallel", (257, 1024)), ("P1 persistent", (257, 1024)),
-    ("P2", (257, 1024)), ("plain", (3, 8, 8, 128)), ("P3", (3, 8, 8, 128))])
+    ("P2", (257, 1024)), ("plain", (3, 8, 8, 128)), ("P3", (3, 8, 8, 128)),
+    ("P3 2 KiB, no hints", (3, 5, 7, 9))])
 def test_probe_matches_jax_add_one_bitwise(name, shape):
     """``y + jnp.bfloat16(1.0)`` (the body of every probe) and the port's
     version give the same bits, edge values included; on the CPU no kernel
@@ -101,6 +103,8 @@ def test_probe_matches_jax_add_one_bitwise(name, shape):
      ValueError),
     (lambda: sp.dma_add_one(torch.zeros(4, 8, dtype=torch.bfloat16), 24), ValueError),
     (lambda: sp.dma_add_one(torch.zeros(4, 8, dtype=torch.bfloat16), 32, 5), ValueError),
+    (lambda: sp.nhwc_add_one(torch.zeros(1, 2, 2, 8, dtype=torch.bfloat16), 3), ValueError),
+    (lambda: sp.nhwc_add_one(torch.zeros(1, 2, 2, 8, dtype=torch.bfloat16), 4, 3), ValueError),
 ])
 def test_probe_wrappers_refuse_what_their_kernels_do_not_take(call, exc):
     """Checked before the device is looked at, so the CPU raises as the
