@@ -5,19 +5,34 @@ scripts, which measure how fast a hand-written kernel streams bytes:
 
   * P1, :func:`stream_add_one` (``variant(rows_per_block, semantics).f``,
     scripts/bench_pallas_stream.py:35-51): row blocks of a 2-D tensor, a
-    Triton kernel. ``schedule="parallel"`` is one program per block;
+    Triton kernel. A block is cut into flat 4 KiB tiles in address order,
+    P3's unit. ``schedule="parallel"`` is one program per tile;
     ``"persistent"`` (the TPU's sequential "arbitrary" grid, which has no
-    order on the card) is one program per SM taking blocks grid-stride.
+    order on the card) is as many programs as the SMs hold at once, each
+    walking the tiles grid-stride and loading its next tile before it
+    stores the one it holds.
   * P2, :func:`dma_add_one` (``manual_dma(rows_per_chunk).f``, :55-108):
     a copy pipeline managed by hand, in CUDA C++ (``csrc/stream_dma.cu``):
-    one persistent block per SM, a ring of shared-memory stages filled by
-    1-D bulk TMA copies that complete on mbarriers, and bulk stores.
+    as many persistent blocks as shared memory allows, each a producer
+    thread that claims chunks from a counter and keeps 1-D bulk TMA loads
+    of them in flight into one ring of stages (they complete on
+    mbarriers), and bulk-stores each stage once consumer warps have added
+    1 to it in place.
   * P3, :func:`nhwc_add_one` (``pallas_copy``,
     scripts/bench_elementwise_tpu.py:69-87): an NHWC (B, H, W, C) tensor, a
     Triton kernel. The TPU kernel's unit, 2 whole images (2 MiB) a program,
     split 250 programs unevenly over 132 SMs and left each program's loads
     and stores in turn; the card's design is an oversubscribed grid of one
     small tile a program with streaming cache hints (:data:`P3_SWEEP`).
+
+A persistent grid that splits the work into equal shares up front waits
+for its slowest SM at the end (PERF.md has the sweeps). P2 claims its
+chunks from a counter instead, so the SMs that stream fastest take more;
+the counters (:func:`_claims`) are set back to 0 by the last block of each
+launch, so no launch is added to clear them. A Triton program cannot claim
+that cheaply (every thread waits on a scalar atomic's result, once a
+tile), so P1's default is the parallel schedule: one tile a program, which
+the hardware hands out to whichever SM is free.
 
 Bound, the same for all three: the function reads its input once and
 writes its output once, so at the benches' full shape (256000 x 1024 or
@@ -44,9 +59,7 @@ import functools
 import torch
 
 _ALIGN = 16  # bytes: bulk copies and 16-byte vector accesses need it
-MAX_COLS = 16384  # P1's sub-tile is (BLOCK_R, next power of 2 >= n_cols)
-_TILE_ELEMS = 16384  # elements per P1 sub-tile: 64 a thread at 8 warps
-_WARPS = 8
+MAX_COLS = 16384  # the widest row P1 takes (a TPU variant's block holds whole rows)
 
 
 def add_one_plain(y):
@@ -81,29 +94,74 @@ def _p1_kernel():
     import triton.language as tl
 
     @triton.jit
-    def p1_add_one(x_ptr, y_ptr, n_rows, n_cols, rows_per_block, n_blocks,
-                   BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
-        r = tl.arange(0, BLOCK_R)[:, None]
-        c = tl.arange(0, BLOCK_C)[None, :]
-        # grid-stride over blocks: once per program when the grid is n_blocks
-        for blk in range(tl.program_id(0), n_blocks, tl.num_programs(0)):
-            row0 = blk * rows_per_block
-            row_end = tl.minimum(row0 + rows_per_block, n_rows)
-            for r0 in range(row0, row_end, BLOCK_R):  # register-sized sub-tiles
-                rows = r0 + r
-                mask = (rows < row_end) & (c < n_cols)
-                offs = rows.to(tl.int64) * n_cols + c
-                x = tl.load(x_ptr + offs, mask=mask)
-                tl.store(y_ptr + offs, (x.to(tl.float32) + 1.0).to(tl.bfloat16), mask=mask)
+    def tile_at(t, n_elems, block_elems, tiles_per_block, TILE: tl.constexpr):
+        # tile t is the (t % tiles_per_block)-th TILE of row block
+        # t // tiles_per_block, masked at the block's end
+        blk = t // tiles_per_block
+        start = blk.to(tl.int64) * block_elems
+        offs = start + (t - blk * tiles_per_block).to(tl.int64) * TILE + tl.arange(0, TILE)
+        return offs, offs < tl.minimum(start + block_elems, n_elems)
 
-    return triton, p1_add_one
+    @triton.jit
+    def p1_add_one(x_ptr, y_ptr, n_elems, block_elems, tiles_per_block, n_tiles,
+                   TILE: tl.constexpr, PERSISTENT: tl.constexpr):
+        t = tl.program_id(0)
+        offs, mask = tile_at(t, n_elems, block_elems, tiles_per_block, TILE)
+        x = tl.load(x_ptr + offs, mask=mask, eviction_policy="evict_first")
+        if PERSISTENT:
+            # walk tiles t, t + step, ...: load the next tile before
+            # storing this one
+            step = tl.num_programs(0)
+            for cur in range(t, n_tiles - step, step):
+                n_offs, n_mask = tile_at(cur + step, n_elems, block_elems, tiles_per_block, TILE)
+                nxt = tl.load(x_ptr + n_offs, mask=n_mask, eviction_policy="evict_first")
+                c_offs, c_mask = tile_at(cur, n_elems, block_elems, tiles_per_block, TILE)
+                tl.store(y_ptr + c_offs, (x.to(tl.float32) + 1.0).to(tl.bfloat16),
+                         mask=c_mask, cache_modifier=".cs")
+                x = nxt
+            last = t + (n_tiles - 1 - t) // step * step
+            offs, mask = tile_at(last, n_elems, block_elems, tiles_per_block, TILE)
+        tl.store(y_ptr + offs, (x.to(tl.float32) + 1.0).to(tl.bfloat16), mask=mask,
+                 cache_modifier=".cs")
+
+    return p1_add_one
 
 
-def stream_add_one(y, rows_per_block=256, schedule="parallel"):
+def resident_programs(warps, regs_per_thread, threads_per_sm, regs_per_sm=65536,
+                      blocks_per_sm=32):
+    """Programs of ``warps`` warps, ``regs_per_thread`` registers a thread,
+    that one SM holds at once: the fewest its thread slots, its registers
+    (given out 256 a warp) and its block slots allow (H100: 2048 threads,
+    65,536 registers, 32 blocks)."""
+    regs_per_warp = -(-regs_per_thread * 32 // 256) * 256
+    return max(1, min(threads_per_sm // (32 * warps), regs_per_sm // (regs_per_warp * warps),
+                      blocks_per_sm))
+
+
+# P1's unit of work (P3's default): one flat tile of 4 KiB, 4 warps, 16
+# bytes a thread twice over; the row block is the unit the schedule names
+P1_TILE_KIB, P1_WARPS = 4, 4
+P1_DEFAULT = (256, "parallel")
+p1_resident = {}  # device index -> programs per SM of the persistent grid
+
+
+def _p1_programs_per_sm(kernel, args, meta, device):
+    """Reckoned once per device from the compiled kernel's registers."""
+    if device.index not in p1_resident:
+        compiled = kernel.warmup(*args, grid=(1,), **meta)
+        compiled._init_handles()  # loads the binary, which reports its registers
+        threads = torch.cuda.get_device_properties(device).max_threads_per_multi_processor
+        p1_resident[device.index] = resident_programs(P1_WARPS, compiled.n_regs, threads)
+    return p1_resident[device.index]
+
+
+def stream_add_one(y, rows_per_block=P1_DEFAULT[0], schedule=P1_DEFAULT[1]):
     """P1: ``y + 1`` for a contiguous 2-D bf16 ``y`` of at most
-    :data:`MAX_COLS` columns, in blocks of ``rows_per_block`` rows.
-    ``schedule`` is "parallel" (one program per block) or "persistent" (one
-    program per SM, blocks taken grid-stride)."""
+    :data:`MAX_COLS` columns, in blocks of ``rows_per_block`` rows, each cut
+    into flat tiles of :data:`P1_TILE_KIB` KiB in address order.
+    ``schedule`` is "parallel" (one program per tile) or "persistent" (as
+    many programs as the SMs hold at once, each walking the tiles
+    grid-stride)."""
     _check(y, 2, "stream_add_one")
     if rows_per_block < 1:
         raise ValueError(f"rows_per_block must be >= 1, got {rows_per_block}")
@@ -114,16 +172,22 @@ def stream_add_one(y, rows_per_block=256, schedule="parallel"):
         raise ValueError(f"stream_add_one takes at most {MAX_COLS} columns, got {n_cols}")
     if y.device.type == "cpu":
         return add_one_plain(y)
-    triton, kernel = _p1_kernel()
-    block_c = triton.next_power_of_2(n_cols)
-    block_r = max(1, _TILE_ELEMS // block_c)
-    n_blocks = -(-n_rows // rows_per_block)
+    kernel = _p1_kernel()
+    tile = P1_TILE_KIB * 1024 // y.element_size()
+    block_elems = min(rows_per_block, n_rows) * n_cols
+    tiles_per_block = -(-block_elems // tile)
+    n_tiles = -(-n_rows // rows_per_block) * tiles_per_block
     out = torch.empty_like(y)
+    persistent = schedule == "persistent"
+    meta = dict(TILE=tile, PERSISTENT=persistent, num_warps=P1_WARPS,
+                num_stages=1)  # the loop is pipelined by hand
     with torch.cuda.device(y.device):
-        sms = torch.cuda.get_device_properties(y.device).multi_processor_count
-        grid = n_blocks if schedule == "parallel" else min(n_blocks, sms)
-        kernel[(grid,)](y, out, n_rows, n_cols, rows_per_block, n_blocks,
-                        BLOCK_R=block_r, BLOCK_C=block_c, num_warps=_WARPS)
+        args = (y, out, y.numel(), block_elems, tiles_per_block, n_tiles)
+        grid = n_tiles
+        if persistent:
+            sms = torch.cuda.get_device_properties(y.device).multi_processor_count
+            grid = min(n_tiles, sms * _p1_programs_per_sm(kernel, args, meta, y.device))
+        kernel[(grid,)](*args, **meta)
     stream_add_one.launches += 1
     return out
 
@@ -189,7 +253,19 @@ nhwc_add_one.launches = 0
 
 # ------------------ P2: bulk-TMA copy pipeline, CUDA C++ ---------------------
 
-DMA_STAGES = (2, 3, 4)
+DMA_STAGES = tuple(range(2, 9))  # MAX_STAGES in csrc/stream_dma.cu
+_CLAIMS = {}
+
+
+def _claims(device):
+    """P2's claim counters (next chunk, blocks done, int64) for the current
+    stream of ``device``: zeroed once, and each launch leaves them at 0
+    again. One pair per stream, so that launches on two streams never
+    share them."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    if key not in _CLAIMS:
+        _CLAIMS[key] = torch.zeros(2, dtype=torch.int64, device=device)
+    return _CLAIMS[key]
 
 
 def _dma_kernel():
@@ -197,29 +273,34 @@ def _dma_kernel():
 
     fn = _build.load("stream_dma").bndm_stream_add_one_bf16
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def dma_add_one(y, chunk_bytes=32768, stages=2):
+P2_DEFAULT = (16384, 8)
+
+
+def dma_add_one(y, chunk_bytes=P2_DEFAULT[0], stages=P2_DEFAULT[1]):
     """P2: ``y + 1`` for a contiguous 2-D bf16 ``y`` through a hand-managed
     pipeline: chunks of ``chunk_bytes`` (a multiple of 16) of the flat
-    tensor, a ring of ``stages`` (2, 3 or 4) input and output buffers in
-    each block's shared memory, which must hold 2 x stages x chunk_bytes."""
+    tensor, added in place in a ring of ``stages`` (2 to 8) buffers in each
+    block's shared memory, which must hold stages x chunk_bytes; as many
+    blocks as the SMs hold at once, each claiming chunks in turn."""
     _check(y, 2, "dma_add_one")
     if chunk_bytes < _ALIGN or chunk_bytes % _ALIGN:
         raise ValueError(f"chunk_bytes must be a positive multiple of {_ALIGN}, "
                          f"got {chunk_bytes}")
     if stages not in DMA_STAGES:
-        raise ValueError(f"stages is one of {DMA_STAGES}, not {stages}")
+        raise ValueError(f"stages is 2 to 8, not {stages}")
     if y.device.type == "cpu":
         return add_one_plain(y)
     out = torch.empty_like(y)
     fn = _dma_kernel()
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
-        err = fn(y.data_ptr(), out.data_ptr(), y.numel(), chunk_bytes, stages, stream)
+        err = fn(y.data_ptr(), out.data_ptr(), y.numel(), chunk_bytes, stages,
+                 _claims(y.device).data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"dma_add_one kernel launch failed with CUDA error {err} "
                            f"(chunk_bytes={chunk_bytes}, stages={stages})")

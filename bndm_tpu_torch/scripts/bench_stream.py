@@ -4,12 +4,12 @@ Counterpart of ``scripts/bench_pallas_stream.py``: ``y + 1`` over a bf16
 (256000, 1024) tensor (the payload of one (500, 64, 64, 128) activation,
 524,288,000 B) through
 
-  * P1 (Triton) in row blocks of 256, 512 and 1024 rows, each with one
-    program per SM taking blocks in turn ("persistent", the TPU's
-    sequential "arbitrary" grid) and with one program per block
-    ("parallel");
+  * P1 (Triton) in row blocks of 256, 512 and 1024 rows cut into 4 KiB
+    tiles, each with as many programs as the SMs hold walking the tiles in
+    turn ("persistent", the TPU's sequential "arbitrary" grid) and with
+    one program per tile ("parallel");
   * P2 (CUDA C++, bulk TMA and mbarriers) over a sweep of chunk sizes and
-    ring depths;
+    ring depths (the blocks an SM holds follow from the ring's size);
   * the library's own ``y + 1`` ("torch add same shape").
 
 Each case is ``inner`` chained passes between two CUDA events after one
@@ -31,7 +31,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 ROWS_PER_BLOCK = (256, 512, 1024)
 SCHEDULES = ("persistent", "parallel")
-DMA_SWEEP = ((16384, 2), (32768, 2), (49152, 2), (16384, 3), (32768, 3), (16384, 4))
+# (chunk bytes, stages): rings of 32-192 KiB, so 6, 3 or 1 blocks an SM
+DMA_SWEEP = ((8192, 4), (8192, 8), (16384, 4), (16384, 8), (32768, 4), (32768, 6))
 
 
 def report(name, ms, moved_bytes, device):

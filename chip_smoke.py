@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (bndm_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase below
+    python3 chip_smoke.py --probes    # phases 1, 2 and 5 alone (the probes)
 
 Drives the port's serving and training paths at full width with random
 seeded weights and holds every hand-written kernel against its plain
@@ -21,8 +22,9 @@ PyTorch version:
      (torch ops) timed beside its bound;
   5. the streaming probes P1-P3 (y + 1 in bf16) bitwise against their
      plain version at the full and ragged shapes, on edge values, every
-     variant of the bench's sweep; their times beside torch.add's and the
-     bound, P3's variants and torch.add in alternating turns; then both
+     variant of the bench's sweep; each probe's variants and torch.add
+     timed in alternating turns, the named default variant (P1_DEFAULT,
+     P2_DEFAULT, P3_DEFAULT) beside the plain version and the bound; then both
      bench entry points (bndm_tpu_torch.scripts.
      bench_stream and bench_elementwise) at their full shapes;
   6. the noise engine (gaussianBN, inplace) at res 32, 64, 128 on CUDA and
@@ -508,7 +510,17 @@ def _bitwise(torch, got, want):
     return same, err
 
 
-P3_TURNS = 5
+PROBE_TURNS = 5
+
+
+def p1_name(variant):
+    rows, schedule = variant
+    return f"{rows} rows {schedule}"
+
+
+def p2_name(variant):
+    chunk, stages = variant
+    return f"{chunk // 1024} KiB x {stages} stages"
 
 
 def p3_name(variant):
@@ -518,21 +530,24 @@ def p3_name(variant):
 
 def phase_probes(torch, peak_bytes):
     """P1-P3 bitwise against add_one_plain at the full and ragged shapes;
-    their times (CUDA events over ``inner`` chained passes) beside the
-    plain version's, torch.add's and the bytes bound; then the two bench
-    entry points at their full shapes, the launch counts reset before."""
-    from bndm_tpu_torch.ops.stream_probes import (P3_DEFAULT, P3_SWEEP, add_one_plain,
-                                                  dma_add_one, nhwc_add_one, stream_add_one)
+    every variant's time (CUDA events over ``inner`` chained passes) and
+    torch.add's in alternating turns, the default variant's beside the
+    plain version's and the bytes bound; then the two bench entry points at
+    their full shapes, the launch counts reset before."""
+    from bndm_tpu_torch.ops.stream_probes import (P1_DEFAULT, P2_DEFAULT, P3_DEFAULT, P3_SWEEP,
+                                                  add_one_plain, dma_add_one, nhwc_add_one,
+                                                  p1_resident, stream_add_one)
     from bndm_tpu_torch.scripts import bench_elementwise, bench_stream
     from bndm_tpu_torch.utils.timing import pass_ms
 
     t_phase = time.time()
     inner = 20
-    variants = {"P1": [(f"{rpb} rows {sched}", lambda y, r=rpb, s=sched: stream_add_one(y, r, s))
+    variants = {"P1": [(p1_name((rpb, sched)), lambda y, r=rpb, s=sched: stream_add_one(y, r, s))
                        for rpb in bench_stream.ROWS_PER_BLOCK for sched in bench_stream.SCHEDULES],
-                "P2": [(f"{c // 1024} KiB x {st} stages", lambda y, c=c, st=st: dma_add_one(y, c, st))
-                       for c, st in bench_stream.DMA_SWEEP],
+                "P2": [(p2_name(v), lambda y, v=v: dma_add_one(y, *v))
+                       for v in bench_stream.DMA_SWEEP],
                 "P3": [(p3_name(v), lambda y, v=v: nhwc_add_one(y, *v)) for v in P3_SWEEP]}
+    default = {"P1": p1_name(P1_DEFAULT), "P2": p2_name(P2_DEFAULT), "P3": p3_name(P3_DEFAULT)}
     full = {"P1": (256000, 1024), "P2": (256000, 1024), "P3": (500, 64, 64, 128)}
     ragged = {"P1": [(257, 1024), (5, 1001)], "P2": [(257, 1024), (5, 1001), (3, 13)],
               "P3": [(3, 8, 8, 128), (3, 5, 7, 9)]}
@@ -551,16 +566,12 @@ def phase_probes(torch, peak_bytes):
         moved = 2 * x.numel() * x.element_size()
         bound_ms = moved / peak_bytes * 1e3
         plain_ms = pass_ms(add_one_plain, x, inner)
-        if p == "P3":  # torch.add, then each variant, then back
-            turns = alternating({"torch.add": lambda y: torch.add(y, 1), **dict(vs)}, P3_TURNS,
-                                lambda fn: [pass_ms(fn, x, inner)])
-            lib_ms = turns.pop("torch.add")
-            by_variant = [{"variant": vname, "ms": ms} for vname, ms in turns.items()]
-            main = next(r for r in by_variant if r["variant"] == p3_name(P3_DEFAULT))
-        else:
-            lib_ms = pass_ms(lambda y: torch.add(y, 1), x, inner)
-            by_variant = [{"variant": vname, "ms": pass_ms(fn, x, inner)} for vname, fn in vs]
-            main = min(by_variant, key=lambda r: r["ms"])
+        # torch.add, then each variant, then back
+        turns = alternating({"torch.add": lambda y: torch.add(y, 1), **dict(vs)}, PROBE_TURNS,
+                            lambda fn: [pass_ms(fn, x, inner)])
+        lib_ms = turns.pop("torch.add")
+        by_variant = [{"variant": vname, "ms": ms} for vname, ms in turns.items()]
+        main = next(r for r in by_variant if r["variant"] == default[p])
         for r in by_variant:
             log(f"{p} {r['variant']} at {full[p]}: {r['ms']:.4f} ms, "
                 f"{moved / r['ms'] / 1e6:.1f} GB/s, {100 * bound_ms / r['ms']:.1f} % of the "
@@ -568,12 +579,13 @@ def phase_probes(torch, peak_bytes):
         rows[p] = dict(main, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                        gb_s=moved / main["ms"] / 1e6, max_abs_err=worst[p],
                        shape=str(full[p]), by_variant=by_variant)
-        how = (f"medians of {P3_TURNS} alternating turns, the default variant" if p == "P3"
-               else "the best variant")
-        log(f"{p} times ({inner} chained passes, CUDA events; {how}): {main['ms']:.4f} ms "
+        log(f"{p} times ({inner} chained passes, CUDA events; medians of {PROBE_TURNS} "
+            f"alternating turns, the default variant): {main['ms']:.4f} ms "
             f"({main['variant']}), plain {plain_ms:.4f} ms, torch.add {lib_ms:.4f} ms "
-            f"({main['ms'] / lib_ms:.3f}x), bound {bound_ms:.4f} ms (bytes)")
+            f"({main['ms'] / lib_ms:.4f}x), bound {bound_ms:.4f} ms (bytes), "
+            f"{100 * bound_ms / main['ms']:.1f} % of the bound")
         del x
+    log(f"P1 persistent grid: {p1_resident} programs per SM (by device)")
 
     reset_launches()
     stream_rows = bench_stream.main()
@@ -582,7 +594,9 @@ def phase_probes(torch, peak_bytes):
     for p, name in (("P1", "stream_add_one"), ("P2", "dma_add_one"), ("P3", "nhwc_add_one")):
         rows[p]["launches"] = counts[name]
         check(counts[name] > 0, f"{p} was not launched by the bench entry points")
-    check(len(stream_rows) == 13 and len(elem_rows) == 12, "a bench case is missing")
+    check(len(stream_rows) == len(bench_stream.cases(1024))
+          and len(elem_rows) == 1 + len(bench_elementwise.cases(128, "cpu")),  # + the fp32 copy
+          "a bench case is missing")
     check(all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in stream_rows + elem_rows),
           "a bench case has no time")
     log(f"probes: launches in the bench entry points P1 {counts['stream_add_one']}, P2 "
@@ -848,7 +862,11 @@ def phase_trace(torch):
         del model
 
 
-def main():
+def main(argv):
+    if argv not in ([], ["--probes"]):
+        log(f"FAIL: unknown arguments {argv} (the only option is --probes)")
+        return 2
+    probes_only = argv == ["--probes"]
     if not os.path.isdir(os.path.join(HERE, "bndm_tpu_torch")):
         log("FAIL: bndm_tpu_torch/ is not beside chip_smoke.py (run it from the repository)")
         return 1
@@ -878,6 +896,8 @@ def main():
     t0 = time.time()
     libs = _build.build_all()
     log(f"build: {sorted(libs)} in {time.time() - t0:.1f}s")
+    if probes_only:  # phase 5 alone
+        return finish(torch, kind, probe_kernels(phase_probes(torch, peak[0])), t_start)
 
     with tempfile.TemporaryDirectory(prefix="bndm_chip_smoke_") as work, \
             contextlib.chdir(work):  # the CLI writes its run folders under the cwd
@@ -972,6 +992,15 @@ def main():
         "shape": "grad, wn, bn (4096, 192) -> (192,)",
         "by_m": k3_rows,
     }]
+    kernels += probe_kernels(probes)
+    log(f"train: {tr['images_per_s']:.2f} images/s over steps 2-8, first step "
+        f"{tr['first_step_s']:.3f} s (batch 64)")
+    return finish(torch, kind, kernels, t_start)
+
+
+def probe_kernels(probes):
+    """The kernels line's rows of P1-P3 (the default variant's times)."""
+    out = []
     for p, name, route, source, replaces in (
             ("P1", "stream_add_one", "triton", "bndm_tpu_torch/ops/stream_probes.py",
              "scripts/bench_pallas_stream.py:35"),
@@ -980,14 +1009,16 @@ def main():
             ("P3", "nhwc_add_one", "triton", "bndm_tpu_torch/ops/stream_probes.py",
              "scripts/bench_elementwise_tpu.py:69")):
         r = probes[p]
-        kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                        "launches": r["launches"], "max_abs_err": r["max_abs_err"],
-                        "ms": r["ms"], "variant": r["variant"], "plain_ms": r["plain_ms"],
-                        "bound_ms": r["bound_ms"], "bound_by": "bytes",
-                        "library_ms": r["library_ms"], "library": "torch.add(y, 1)",
-                        "gb_s": r["gb_s"], "shape": r["shape"], "by_variant": r["by_variant"]})
-    log(f"train: {tr['images_per_s']:.2f} images/s over steps 2-8, first step "
-        f"{tr['first_step_s']:.3f} s (batch 64)")
+        out.append({"name": name, "route": route, "source": source, "replaces": replaces,
+                    "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+                    "ms": r["ms"], "variant": r["variant"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": "bytes",
+                    "library_ms": r["library_ms"], "library": "torch.add(y, 1)",
+                    "gb_s": r["gb_s"], "shape": r["shape"], "by_variant": r["by_variant"]})
+    return out
+
+
+def finish(torch, kind, kernels, t_start):
     log(f"wall {time.time() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -997,7 +1028,7 @@ def main():
 
 if __name__ == "__main__":
     try:
-        code = main()
+        code = main(sys.argv[1:])
     except Exception:  # every phase failure ends the run non-zero, no result line
         traceback.print_exc()
         print("FAIL: a phase failed (traceback above)", flush=True)

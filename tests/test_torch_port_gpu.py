@@ -12,6 +12,7 @@ import torch
 from bndm_tpu_torch.ops.cuda_bluenoise import (FusedBlueNoise, fused_bluenoise,
                                                fused_bluenoise_flat, fused_bluenoise_flat_plain,
                                                tri_matmul, tri_matmul_plain)
+from bndm_tpu_torch.scripts import bench_stream
 
 
 def _cuda_or_skip():
@@ -309,15 +310,17 @@ def _assert_bits(got, x):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows_per_block", [256, 512, 1024])
-@pytest.mark.parametrize("schedule", ["parallel", "persistent"])
+@pytest.mark.parametrize("rows_per_block", bench_stream.ROWS_PER_BLOCK)
+@pytest.mark.parametrize("schedule", bench_stream.SCHEDULES)
 def test_stream_add_one_kernel_is_bitwise_plain(rows_per_block, schedule):
     """P1 (Triton) equals add_one_plain bit for bit at ragged rows and
-    columns, one counted launch per call."""
+    columns (a block's last tile cut short), with one tile a program and
+    with many (the persistent grid's turns), one counted launch per call."""
     from bndm_tpu_torch.ops.stream_probes import stream_add_one
 
     _cuda_or_skip()
-    for seed, shape in enumerate([(257, 1024), (5, 1001), (2048, 1024)]):
+    for seed, shape in enumerate([(257, 1024), (5, 1001), (3, 13), (2048, 1024),
+                                  (65536, 1024), (20001, 1001)]):
         x = _edge_bf16(shape, seed)
         before = stream_add_one.launches
         got = stream_add_one(x, rows_per_block, schedule)
@@ -327,16 +330,18 @@ def test_stream_add_one_kernel_is_bitwise_plain(rows_per_block, schedule):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("chunk_bytes,stages", [(16384, 2), (32768, 2), (49152, 2), (16384, 3),
-                                                (32768, 3), (16384, 4), (16, 2)])
+@pytest.mark.parametrize("chunk_bytes,stages", [*bench_stream.DMA_SWEEP, (16, 2), (16, 8),
+                                                (49152, 3)])
 def test_dma_add_one_kernel_is_bitwise_plain(chunk_bytes, stages):
     """P2 (bulk TMA + mbarriers) equals add_one_plain bit for bit: a last
     chunk shorter than the others, a tail that is not a multiple of 16
-    bytes, fewer chunks than SMs and many chunks per block."""
+    bytes, fewer chunks than SMs, and many chunks per block (the ring
+    comes round many times)."""
     from bndm_tpu_torch.ops.stream_probes import dma_add_one
 
     _cuda_or_skip()
-    for seed, shape in enumerate([(257, 1024), (5, 1001), (3, 13), (1, 7), (4096, 1024)]):
+    for seed, shape in enumerate([(257, 1024), (5, 1001), (3, 13), (1, 7), (4096, 1024),
+                                  (65536, 1024), (20001, 1001)]):
         x = _edge_bf16(shape, seed)
         before = dma_add_one.launches
         got = dma_add_one(x, chunk_bytes, stages)
@@ -346,8 +351,26 @@ def test_dma_add_one_kernel_is_bitwise_plain(chunk_bytes, stages):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("chunk_bytes,stages", [(8192, 4), (16384, 8)])
+def test_dma_claim_counters_are_back_at_zero_after_each_launch(chunk_bytes, stages):
+    """P2's blocks claim their chunks from counters that the last block of
+    each launch sets back to 0: launch after launch on shapes of other
+    sizes, the counters read 0 and the output stays bitwise."""
+    from bndm_tpu_torch.ops import stream_probes as sp
+
+    _cuda_or_skip()
+    for seed, shape in enumerate([(4096, 1024), (3, 13), (20001, 1001), (1, 7), (257, 1024)]):
+        x = _edge_bf16(shape, seed)
+        for _ in range(3):
+            got = sp.dma_add_one(x, chunk_bytes, stages)
+        torch.cuda.synchronize()
+        _assert_bits(got, x)
+        assert torch.equal(sp._claims(x.device).cpu(), torch.zeros(2, dtype=torch.int64))
+
+
+@pytest.mark.gpu
 def test_dma_add_one_refuses_what_shared_memory_cannot_hold():
-    """2 x 4 stages x 64 KiB exceeds a block's shared memory: the launch is
+    """4 stages x 64 KiB exceeds a block's shared memory: the launch is
     refused and the wrapper raises instead of returning garbage."""
     from bndm_tpu_torch.ops.stream_probes import dma_add_one
 

@@ -64,7 +64,12 @@ WRAPPERS = {
     "plain": sp.add_one_plain,
     "P1 parallel": lambda y: sp.stream_add_one(y, 256, "parallel"),
     "P1 persistent": lambda y: sp.stream_add_one(y, 1024, "persistent"),
+    "P1 default": sp.stream_add_one,
+    "P1 512 rows persistent": lambda y: sp.stream_add_one(y, 512, "persistent"),
     "P2": lambda y: sp.dma_add_one(y, 16384, 2),
+    "P2 default": sp.dma_add_one,
+    "P2 8 KiB x 8 stages": lambda y: sp.dma_add_one(y, 8192, 8),
+    "P2 32 KiB x 6 stages": lambda y: sp.dma_add_one(y, 32768, 6),
     "P3": sp.nhwc_add_one,
     "P3 2 KiB, no hints": lambda y: sp.nhwc_add_one(y, 2, 4, False),
 }
@@ -73,7 +78,9 @@ WRAPPERS = {
 @pytest.mark.parametrize("name,shape", [
     ("plain", (257, 1024)), ("P1 parallel", (257, 1024)), ("P1 persistent", (257, 1024)),
     ("P2", (257, 1024)), ("plain", (3, 8, 8, 128)), ("P3", (3, 8, 8, 128)),
-    ("P3 2 KiB, no hints", (3, 5, 7, 9))])
+    ("P3 2 KiB, no hints", (3, 5, 7, 9)), ("P1 default", (5, 1001)),
+    ("P1 512 rows persistent", (257, 1024)), ("P2 default", (5, 1001)),
+    ("P2 8 KiB x 8 stages", (3, 13)), ("P2 32 KiB x 6 stages", (257, 1024))])
 def test_probe_matches_jax_add_one_bitwise(name, shape):
     """``y + jnp.bfloat16(1.0)`` (the body of every probe) and the port's
     version give the same bits, edge values included; on the CPU no kernel
@@ -102,9 +109,10 @@ def test_probe_matches_jax_add_one_bitwise(name, shape):
     (lambda: sp.stream_add_one(torch.zeros(1, sp.MAX_COLS + 1, dtype=torch.bfloat16)),
      ValueError),
     (lambda: sp.dma_add_one(torch.zeros(4, 8, dtype=torch.bfloat16), 24), ValueError),
-    (lambda: sp.dma_add_one(torch.zeros(4, 8, dtype=torch.bfloat16), 32, 5), ValueError),
+    (lambda: sp.dma_add_one(torch.zeros(4, 8, dtype=torch.bfloat16), 32, 9), ValueError),
     (lambda: sp.nhwc_add_one(torch.zeros(1, 2, 2, 8, dtype=torch.bfloat16), 3), ValueError),
     (lambda: sp.nhwc_add_one(torch.zeros(1, 2, 2, 8, dtype=torch.bfloat16), 4, 3), ValueError),
+    (lambda: sp.dma_add_one(torch.zeros(4, 8, dtype=torch.bfloat16), 32, 1), ValueError),
 ])
 def test_probe_wrappers_refuse_what_their_kernels_do_not_take(call, exc):
     """Checked before the device is looked at, so the CPU raises as the
@@ -112,6 +120,29 @@ def test_probe_wrappers_refuse_what_their_kernels_do_not_take(call, exc):
     empty tensor, and arguments out of range."""
     with pytest.raises(exc):
         call()
+
+
+@pytest.mark.parametrize("warps,regs,threads,want", [
+    (4, 32, 2048, 16),  # the SM's 64 warp slots
+    (4, 40, 2048, 12),  # 40 registers: 1280 a warp, 65,536 // 5120
+    (4, 48, 2048, 10),
+    (1, 16, 2048, 32),  # the SM's 32 block slots
+    (8, 255, 2048, 1),  # 255 rounds to 8192 a warp: one program
+    (16, 32, 1536, 3),  # fewer thread slots
+])
+def test_resident_programs_counts_threads_registers_and_blocks(warps, regs, threads, want):
+    """The persistent P1 grid is SMs x this: what an H100 SM holds at once
+    of programs of ``warps`` warps at ``regs`` registers a thread."""
+    assert sp.resident_programs(warps, regs, threads) == want
+
+
+def test_the_default_variants_are_in_the_bench_sweeps():
+    """chip_smoke.py times each probe's default among its sweep's variants."""
+    assert sp.P1_DEFAULT[0] in bench_stream.ROWS_PER_BLOCK
+    assert sp.P1_DEFAULT[1] in bench_stream.SCHEDULES
+    assert sp.P2_DEFAULT in bench_stream.DMA_SWEEP
+    assert sp.P3_DEFAULT in sp.P3_SWEEP
+    assert all(st in sp.DMA_STAGES for _, st in bench_stream.DMA_SWEEP)
 
 
 # --------------------------- the elementwise cases ----------------------------
