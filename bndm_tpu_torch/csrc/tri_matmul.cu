@@ -1,73 +1,62 @@
-// K1: out = L @ W with L lower-triangular, fp32 throughout.
+// K1: out = L @ W with L lower-triangular, fp32 in and out.
 //
 // Replaces the TPU kernel `_pallas_matmul` (body `_matmul_kernel`) of
 // bndm_tpu/ops/pallas_bluenoise.py:74, which `apply_L` dispatches for every
 // correlated noise draw: L is the (4096, 4096) covariance factor and W the
 // white noise folded to (4096, M) with batch and channel as columns.
 //
-// What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 on CUDA cores):
+// What bounds it on an H100 SXM (3.35 TB/s; 67 TFLOP/s fp32 on the CUDA
+// cores, 495 TFLOP/s TF32 on the tensor cores):
 //   * skinny M (a super-res request is M = 12: 4 tiles x 3 channels): the
 //     bytes. The lower triangle of L is n(n+1)/2 * 4 B = 33.6 MB, about
-//     10 us; its n(n+1) * M FLOPs overtake it near M = 42.
+//     10 us; its n(n+1) * M fp32 FLOPs overtake it near M = 42.
 //   * wide M (a res-128 train step at batch 64 is M = 768, a res-64 gallery
-//     batch of 500 is M = 1500): the fp32 operations, n(n+1) * M FLOP,
-//     0.19 ms and 0.38 ms.
-// TF32 tensor cores are not used: their 10-bit mantissa breaks the 2e-5
-// contract the noise engine is held to, so every product is an fp32 FMA.
-// The triangular skip holds in both designs: nothing right of a row
-// block's diagonal tile is read. Tiles that straddle the diagonal multiply
-// through L's zeros, so the kernels ASSUME L is lower-triangular.
+//     batch of 500 is M = 1500): the operations. In 3xTF32 they are
+//     3 n(n+1) M tensor-core FLOP, 0.078 ms and 0.153 ms, against 0.19 ms
+//     and 0.38 ms for the same product in fp32 FMAs.
+// Plain TF32 (a 10-bit mantissa) would break the 2e-5 contract the noise
+// engine is held to; 3xTF32 with a blocked sum keeps fp32 accuracy
+// (tri_mma.cuh says how). The triangular skip holds in both designs:
+// nothing right of a row block's diagonal tile is read. Tiles that straddle
+// the diagonal multiply through L's zeros, so the kernels ASSUME L is
+// lower-triangular.
 //
 // Two designs, chosen by M in the wrapper (ops/cuda_bluenoise.py,
 // SKINNY_MAX_M, set from a sweep on the card):
 //
-// (a) Skinny, bndm_tri_matmul_skinny_f32. Row block i of 16 rows reads
-//     (i+1) * 16 columns of L, so a plain grid leaves the last block with
-//     twice the mean bytes and one SM's latency sets the time. Each block
-//     takes the pair of row blocks (i, nb-1-i) (the table `pairs`, computed
-//     in Python), so every block reads the same n * 16 elements of L, and
-//     128 pairs fill the SMs at n = 4096. Its work is a list of items, the
-//     short block's K chunks of 256 and then the long block's, about 17 for
-//     every pair, so the blocks are level in steps as well as in bytes. The
-//     items flow through a ring of 4 shared-memory stages filled by cp.async
-//     (16-byte copies, zero-filled past the triangular bound): 3 items, 48 KB
-//     of L, are in flight while one is multiplied, more than Little's law
-//     asks of an SM at 3.35 TB/s. An item's chunk of W (256 x M) is staged
-//     beside it (L2 serves it). Each lane holds 2 rows of each block (1 for
-//     M > 16) and all M columns, and the 8 warps x 4 lanes per row split an
-//     item's K. So a W value read from shared memory (a broadcast) feeds 2
-//     FMAs, and every lane works on every item: with a lane per row the
-//     broadcast loads, not HBM, set the time. The partial sums are added in
-//     shared memory in a fixed order. At M = 12 the kernel reads L about as
-//     fast as torch.sum reads the same 33.6 MB (PERF.md); a deeper ring,
-//     longer items and bulk (TMA) copies of L were no faster.
+// (a) Skinny, bndm_tri_matmul_skinny_f32, fp32 FMAs. Row block i of 16 rows
+//     reads (i+1) * 16 columns of L, so a plain grid leaves the last block
+//     with twice the mean bytes and one SM's latency sets the time. Each
+//     block takes the pair of row blocks (i, nb-1-i) (the table `pairs`,
+//     computed in Python), so every block reads the same n * 16 elements of
+//     L, and 128 pairs fill the SMs at n = 4096. Its work is a list of
+//     items, the short block's K chunks of 256 and then the long block's,
+//     about 17 for every pair, so the blocks are level in steps as well as
+//     in bytes. The items flow through a ring of 4 shared-memory stages
+//     filled by cp.async (16-byte copies, zero-filled past the triangular
+//     bound): 3 items, 48 KB of L, are in flight while one is multiplied,
+//     more than Little's law asks of an SM at 3.35 TB/s. An item's chunk of
+//     W (256 x M) is staged beside it (L2 serves it). Each lane holds 2
+//     rows of each block (1 for M > 16) and all M columns, and the 8 warps
+//     x 4 lanes per row split an item's K. So a W value read from shared
+//     memory (a broadcast) feeds 2 FMAs, and every lane works on every
+//     item: with a lane per row the broadcast loads, not HBM, set the time.
+//     The partial sums are added in shared memory in a fixed order. At
+//     M = 12 the kernel reads L about as fast as torch.sum reads the same
+//     33.6 MB (PERF.md); a deeper ring, longer items and bulk (TMA) copies
+//     of L were no faster.
 //
-// (b) Wide, bndm_tri_matmul_wide_f32. 128 x 128 output tiles, 256 threads,
-//     an 8 x 8 register micro-tile each (8 consecutive rows, two groups of 4
-//     columns 64 apart), K in steps of 32 through a ring of 4 cp.async
-//     stages. L's tile is kept as it lies in memory ([row][k], rows padded
-//     to 36 floats): a thread reads float4s of its rows, one address per
-//     quarter warp (a broadcast); W's tile [k][col] is read as float4s of 8
-//     consecutive lanes on 128 consecutive bytes: no bank conflicts. Row
-//     tiles near the top of the triangle are short, so a plain grid leaves
-//     SMs idle; instead a persistent grid of one block per SM walks a
-//     schedule computed in Python: the tiles' K steps laid end to end and cut
-//     into equal contiguous ranges, one per block. A range becomes units
-//     (row tile, column tile, K range); a tile cut between blocks writes its
-//     partial sums to scratch slots, and a second kernel adds a tile's slots
-//     in their fixed order. No float atomics anywhere: the output is the
-//     same bits run to run. Per k a warp issues 4 16-byte shared loads a
-//     thread (16 wavefronts) for 64 FMAs a thread, so the shared-memory and
-//     FMA pipes are loaded alike; steps of 32 (not 16) halve the barriers,
-//     and two blocks per SM (128 registers a thread) were no faster.
-//
-// Ragged n, M and K are masked (cp.async with a source size of 0 fills
-// zeros). The 16-byte copies need n and M to be multiples of 4 and aligned
-// pointers; otherwise the same kernels copy 4 bytes at a time.
+// (b) Wide, bndm_tri_matmul_wide_f32: the shared 3xTF32 tensor-core core
+//     of tri_mma.cuh (a persistent grid over the work list of
+//     `wide_schedule`, split tiles added by a second kernel in slot order)
+//     with an epilogue that stores the sums. Column tiles are 64 or 128
+//     wide, as the wrapper picks by M.
 //
 // The kernels launch on the caller's stream, allocate nothing (the wrapper
 // passes the schedule and the scratch) and do not synchronise; each C
 // entry point returns cudaGetLastError().
+
+#include "tri_mma.cuh"
 
 #include <cuda_runtime.h>
 
@@ -76,31 +65,10 @@
 
 namespace {
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Copy 16 (or 4) bytes global -> shared; src_bytes = 0 writes zeros.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {  // <= N groups still in flight
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using tri_mma::cp_async16;
+using tri_mma::cp_async4;
+using tri_mma::cp_async_commit;
+using tri_mma::cp_async_wait;
 
 // ------------------------------ (a) skinny M --------------------------------
 
@@ -276,156 +244,18 @@ int dispatch_skinny(const float* L, const float* W, float* out, const int* pairs
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// ------------------------------- (b) wide M ---------------------------------
-
-constexpr int WD_BM = 128, WD_BN = 128, WD_BK = 32;  // WIDE_BK in the wrapper
-constexpr int WD_APAD = WD_BK + 4;  // L tile row stride (floats), 16-byte aligned
-constexpr int WD_STAGES = 4;
-constexpr int WD_THREADS = 256;
-constexpr int WD_TM = 8, WD_TN = 8;
-constexpr int WD_STAGE = WD_BM * WD_APAD + WD_BK * WD_BN;  // floats
-constexpr int WD_SMEM = WD_STAGES * WD_STAGE * 4;
-constexpr int WD_TILE = WD_BM * WD_BN;
-static_assert((WD_BM / WD_TM) * (WD_BN / WD_TN) == WD_THREADS, "one micro-tile a thread");
-
-// units: (row tile, column tile, k_lo, k_hi, slot), slot -1 = the whole tile,
-// written to out; block b walks units[block_start[b] .. block_start[b+1]).
-template <bool VEC>
-__global__ void __launch_bounds__(WD_THREADS, 1)
-tri_wide_kernel(const float* __restrict__ L, const float* __restrict__ W,
-                float* __restrict__ out, float* __restrict__ ws, const int* __restrict__ units,
-                const int* __restrict__ block_start, int n, int m) {
-  extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x;
-  const int tx = tid % (WD_BN / WD_TN), ty = tid / (WD_BN / WD_TN);
-  constexpr int V = VEC ? 4 : 1;
-
-  for (int u = block_start[blockIdx.x]; u < block_start[blockIdx.x + 1]; ++u) {
-    const int* unit = units + 5 * u;
-    const int row0 = unit[0] * WD_BM, col0 = unit[1] * WD_BN;
-    const int k_lo = unit[2], k_hi = unit[3], slot = unit[4];
-    const int n_steps = (k_hi - k_lo + WD_BK - 1) / WD_BK;
-
-    auto load = [&](int stage, int step) {
-      float* As = smem + stage * WD_STAGE;
-      float* Bs = As + WD_BM * WD_APAD;
-      const int k0 = k_lo + step * WD_BK;
-      for (int e = tid; e < WD_BM * (WD_BK / V); e += WD_THREADS) {
-        const int r = e / (WD_BK / V), c = (e % (WD_BK / V)) * V;
-        const int gr = row0 + r, gk = k0 + c;
-        const bool ok = gr < n && gk < k_hi;
-        const float* src = ok ? L + static_cast<size_t>(gr) * n + gk : L;
-        if (VEC) cp_async16(As + r * WD_APAD + c, src, ok);
-        else cp_async4(As + r * WD_APAD + c, src, ok);
-      }
-      for (int e = tid; e < WD_BK * (WD_BN / V); e += WD_THREADS) {
-        const int kk = e / (WD_BN / V), j = (e % (WD_BN / V)) * V;
-        const int gk = k0 + kk, gc = col0 + j;
-        const bool ok = gk < k_hi && gc < m;
-        const float* src = ok ? W + static_cast<size_t>(gk) * m + gc : W;
-        if (VEC) cp_async16(Bs + kk * WD_BN + j, src, ok);
-        else cp_async4(Bs + kk * WD_BN + j, src, ok);
-      }
-    };
-
-    float acc[WD_TM][WD_TN];
-#pragma unroll
-    for (int i = 0; i < WD_TM; ++i)
-#pragma unroll
-      for (int j = 0; j < WD_TN; ++j) acc[i][j] = 0.f;
-
-#pragma unroll
-    for (int s = 0; s < WD_STAGES - 1; ++s) {
-      if (s < n_steps) load(s, s);
-      cp_async_commit();
-    }
-    for (int step = 0; step < n_steps; ++step) {
-      cp_async_wait<WD_STAGES - 2>();
-      __syncthreads();
-      const int next = step + WD_STAGES - 1;
-      if (next < n_steps) load(next % WD_STAGES, next);
-      cp_async_commit();
-      const float* As = smem + (step % WD_STAGES) * WD_STAGE + (ty * WD_TM) * WD_APAD;
-      const float* Bs = smem + (step % WD_STAGES) * WD_STAGE + WD_BM * WD_APAD + tx * 4;
-#pragma unroll
-      for (int q = 0; q < WD_BK; q += 4) {
-        float a[WD_TM][4];
-#pragma unroll
-        for (int i = 0; i < WD_TM; ++i) {
-          const float4 v = *reinterpret_cast<const float4*>(As + i * WD_APAD + q);
-          a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
-        }
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const float4 b0 = *reinterpret_cast<const float4*>(Bs + (q + t) * WD_BN);
-          const float4 b1 = *reinterpret_cast<const float4*>(Bs + (q + t) * WD_BN + WD_BN / 2);
-          const float b[WD_TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-          for (int i = 0; i < WD_TM; ++i)
-#pragma unroll
-            for (int j = 0; j < WD_TN; ++j) acc[i][j] = fmaf(a[i][t], b[j], acc[i][j]);
-        }
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // the ring is free for the next unit
-
-#pragma unroll
-    for (int i = 0; i < WD_TM; ++i) {
-      const int r = ty * WD_TM + i;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = h * (WD_BN / 2) + tx * 4;
-        if (slot >= 0) {  // a partial: the whole tile, unmasked
-          *reinterpret_cast<float4*>(ws + static_cast<size_t>(slot) * WD_TILE + r * WD_BN + c) =
-              make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
-        } else if (row0 + r < n) {
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            const int gc = col0 + c + jj;
-            if (gc < m) out[static_cast<size_t>(row0 + r) * m + gc] = acc[i][4 * h + jj];
-          }
-        }
-      }
-    }
-  }
-}
-
-// fixups: (row tile, column tile, first slot, slot count); one block a tile
-// adds its partials in slot order.
-__global__ void __launch_bounds__(WD_THREADS)
-tri_wide_fixup_kernel(const float* __restrict__ ws, float* __restrict__ out,
-                      const int* __restrict__ fixups, int n, int m) {
-  const int* f = fixups + 4 * blockIdx.x;
-  const int row0 = f[0] * WD_BM, col0 = f[1] * WD_BN, slot0 = f[2], count = f[3];
-  for (int e = threadIdx.x; e < WD_TILE; e += WD_THREADS) {
-    const int gr = row0 + e / WD_BN, gc = col0 + e % WD_BN;
-    if (gr >= n || gc >= m) continue;
-    float s = ws[static_cast<size_t>(slot0) * WD_TILE + e];
-    for (int q = 1; q < count; ++q) s += ws[static_cast<size_t>(slot0 + q) * WD_TILE + e];
-    out[static_cast<size_t>(gr) * m + gc] = s;
-  }
-}
-
-template <bool VEC>
-int launch_wide(const float* L, const float* W, float* out, float* ws, const int* units,
-                const int* block_start, int n_blocks, const int* fixups, int n_fixups, int n,
-                int m, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(tri_wide_kernel<VEC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, WD_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tri_wide_kernel<VEC><<<n_blocks, WD_THREADS, WD_SMEM, stream>>>(L, W, out, ws, units,
-                                                                   block_start, n, m);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || n_fixups == 0) return static_cast<int>(err);
-  tri_wide_fixup_kernel<<<n_fixups, WD_THREADS, 0, stream>>>(ws, out, fixups, n, m);
-  return static_cast<int>(cudaGetLastError());
-}
-
 bool vec_ok(const void* L, const void* W, int n, int m) {
   return n % 4 == 0 && m % 4 == 0 && reinterpret_cast<uintptr_t>(L) % 16 == 0 &&
          reinterpret_cast<uintptr_t>(W) % 16 == 0;
 }
+
+struct tri_matmul_epilogue {  // K1 stores the sums as they are
+  float* out;
+  __device__ __forceinline__ void store(size_t o, int, float v) const { out[o] = v; }
+  __device__ __forceinline__ void store4(size_t o, int, float4 v) const {
+    *reinterpret_cast<float4*>(out + o) = v;
+  }
+};
 
 }  // namespace
 
@@ -446,21 +276,16 @@ extern "C" int bndm_tri_matmul_skinny_f32(const void* L, const void* W, void* ou
 }
 
 // The same product for any m through the wide schedule: units (5 int32
-// each), block_start (n_blocks + 1), fixups (4 int32 each) and the scratch
-// ws (one 128 x 128 fp32 tile per slot). Returns the last cudaError_t.
+// each), block_start (n_blocks + 1), fixups (4 int32 each), the scratch ws
+// (one 128 x tile_n fp32 tile per slot) and the column tile, 64 or 128.
+// Returns the last cudaError_t.
 extern "C" int bndm_tri_matmul_wide_f32(const void* L, const void* W, void* out, void* ws,
                                         const void* units, const void* block_start,
-                                        int n_blocks, const void* fixups, int n_fixups, int n,
-                                        int m, void* stream) {
-  const auto* l = static_cast<const float*>(L);
-  const auto* w = static_cast<const float*>(W);
-  auto* o = static_cast<float*>(out);
-  auto* scratch = static_cast<float*>(ws);
-  const auto* u = static_cast<const int*>(units);
-  const auto* b = static_cast<const int*>(block_start);
-  const auto* f = static_cast<const int*>(fixups);
-  auto s = static_cast<cudaStream_t>(stream);
-  return vec_ok(L, W, n, m)
-             ? launch_wide<true>(l, w, o, scratch, u, b, n_blocks, f, n_fixups, n, m, s)
-             : launch_wide<false>(l, w, o, scratch, u, b, n_blocks, f, n_fixups, n, m, s);
+                                        int n_blocks, const void* fixups, int n_fixups,
+                                        int tile_n, int n, int m, void* stream) {
+  return static_cast<int>(tri_mma::launch(
+      static_cast<const float*>(L), static_cast<const float*>(W), static_cast<float*>(ws),
+      static_cast<const int*>(units), static_cast<const int*>(block_start), n_blocks,
+      static_cast<const int*>(fixups), n_fixups, tile_n, n, m,
+      tri_matmul_epilogue{static_cast<float*>(out)}, static_cast<cudaStream_t>(stream)));
 }

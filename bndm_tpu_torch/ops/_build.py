@@ -2,7 +2,8 @@
 
 Every ``csrc/<name>.cu`` is compiled on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), named by a
-hash of its source and flags and kept in ``bndm_tpu_torch/_build/``. A build
+hash of its source, every ``csrc/*.cuh`` header and the flags, and kept in
+``bndm_tpu_torch/_build/``. A build
 happens at first CUDA use, never at import: the CPU tests import every module
 on a host without nvcc. ``build_all`` starts one nvcc per source at once.
 """
@@ -38,8 +39,14 @@ def _nvcc():
 
 
 def lib_path(name):
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` is built: a change to it, to any header in
+    ``csrc/`` (a source may include any of them) or to the flags names
+    another library."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(f.encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -7,9 +7,13 @@ folded to (4096, B*C), batch and channel as columns.
   * K1, :func:`tri_matmul` (``_pallas_matmul`` / ``apply_L``): the product
     alone, in ``csrc/tri_matmul.cu``.
   * K2, :func:`fused_bluenoise_flat` (``_fused_bluenoise_flat``): white noise
-    from a counter-based generator, the product and the gamma mix in one
-    kernel, ``csrc/fused_bluenoise.cu``. K3, :class:`FusedBlueNoise` (the
-    custom JVP ``_fused_flat_diff``), carries the gradient to gamma.
+    from a counter-based generator, then the product with the gamma mix in
+    its epilogue, two kernels in one call, ``csrc/fused_bluenoise.cu``. K3,
+    :class:`FusedBlueNoise` (the custom JVP ``_fused_flat_diff``), carries
+    the gradient to gamma.
+
+K1's wide design and K2's product share one 3xTF32 tensor-core core,
+``csrc/tri_mma.cuh``, driven by the work list of :func:`wide_schedule`.
 
 On a CUDA tensor each wrapper launches its hand-written kernel; on a CPU
 tensor it runs the plain PyTorch version beside it. There is no fallback from
@@ -47,14 +51,24 @@ def _check(L, W):
         raise ValueError("tri_matmul indexes with 32-bit rows and columns")
 
 
-# K1 has two designs (csrc/tri_matmul.cu): "skinny" for M <= SKINNY_MAX_M,
-# bound by L's bytes, and "wide", bound by fp32 FMAs. The skinny kernel takes
-# M up to 64; the sweep of chip_smoke.py phase 3 on an H100 found it faster
-# than the wide one all the way there (PERF.md), so the crossover is its limit.
-SKINNY_MAX_M = 64
+# K1 has two designs (csrc/tri_matmul.cu): "skinny", fp32 FMAs bound by L's
+# bytes, for M <= SKINNY_MAX_M, and "wide", the 3xTF32 tensor-core core,
+# above. The skinny kernel takes M up to SKINNY_LIMIT_M; the sweep of
+# chip_smoke.py phase 3 on an H100 found the wide design faster from M = 24
+# on and the skinny one at M <= 16 (PERF.md).
+SKINNY_MAX_M = 16
+SKINNY_LIMIT_M = 64
 SKINNY_BM = 16  # rows of a skinny row block; a block takes a pair of them
-WIDE_TILE = 128  # rows and columns of a wide output tile
-WIDE_BK = 32  # K per step of the wide kernel (WD_BK): the unit of its schedule
+WIDE_TILE = 128  # rows of a wide output tile (tri_mma::BM), and its widest columns
+WIDE_TILE_NS = (64, 128)  # the core's column tiles
+WIDE_BK = 32  # K per step of the core (tri_mma::BK): the unit of its schedule
+
+
+def wide_tile_n(m):
+    """The core's column tile for M columns: 64 where 128-wide tiles would
+    leave half a tile idle (M = 192 is 3 x 64: a quarter of the work), else
+    128, whose larger warp tiles read less shared memory per product."""
+    return 64 if -(-m // 64) % 2 else 128
 
 
 def skinny_pairs(n):
@@ -68,14 +82,14 @@ def skinny_pairs(n):
                          for i in range(-(-nb // 2))], dtype=torch.int32)
 
 
-def wide_schedule(n, m, blocks):
-    """The wide kernel's work list for a persistent grid of ``blocks``.
+def wide_schedule(n, m, blocks, tile_n=WIDE_TILE):
+    """The wide core's work list for a persistent grid of ``blocks``.
 
-    Every output tile (row tile ti, column tile tj) of 128 x 128 needs
-    ceil(min(n, 128 (ti+1)) / 32) K steps (the triangular bound). The tiles'
-    steps, ti-major, are laid end to end and cut into ``G = min(blocks,
-    total)`` contiguous ranges of equal length (+-1 step): block b's share.
-    Returns int32 tensors
+    Every output tile (row tile ti of 128 rows, column tile tj of ``tile_n``
+    columns) needs ceil(min(n, 128 (ti+1)) / 32) K steps (the triangular
+    bound). The tiles' steps, ti-major, are laid end to end and cut into
+    ``G = min(blocks, total)`` contiguous ranges of equal length (+-1 step):
+    block b's share. Returns int32 tensors
 
       * ``units`` (U, 5): (ti, tj, k_lo, k_hi, slot), a block's piece of one
         tile; slot -1 if the piece is the whole tile (written to the output),
@@ -87,8 +101,10 @@ def wide_schedule(n, m, blocks):
 
     and the number of slots.
     """
+    if tile_n not in WIDE_TILE_NS:
+        raise ValueError(f"the wide core has column tiles {WIDE_TILE_NS}, not {tile_n}")
     steps = [(ti, tj, -(-min(n, WIDE_TILE * (ti + 1)) // WIDE_BK))
-             for ti in range(-(-n // WIDE_TILE)) for tj in range(-(-m // WIDE_TILE))]
+             for ti in range(-(-n // WIDE_TILE)) for tj in range(-(-m // tile_n))]
     total = sum(s for _, _, s in steps)
     g = max(1, min(blocks, total))
     cuts = [b * total // g for b in range(g + 1)]
@@ -120,12 +136,25 @@ def wide_schedule(n, m, blocks):
 
 @functools.cache
 def _schedule_on(device, n, m, regime):
-    """The schedule tensors of one shape, made once and kept on ``device``."""
+    """The schedule tensors of one shape, made once and kept on ``device``:
+    the skinny pairs, or the wide work list with its slot count and column
+    tile."""
     if regime == "skinny":
         return (skinny_pairs(n).to(device),)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    units, starts, fixups, n_slots = wide_schedule(n, m, sms)
-    return units.to(device), starts.to(device), fixups.to(device), n_slots
+    tile_n = wide_tile_n(m)
+    units, starts, fixups, n_slots = wide_schedule(n, m, sms, tile_n)
+    return units.to(device), starts.to(device), fixups.to(device), n_slots, tile_n
+
+
+def _wide_args(device, n, m):
+    """The wide core's schedule arguments for one call, in the C entry
+    points' order (units, block_start, n_blocks, fixups, n_fixups, tile_n),
+    and a fresh scratch of one 128 x tile_n tile per slot."""
+    units, starts, fixups, n_slots, tile_n = _schedule_on(device, n, m, "wide")
+    ws = torch.empty((max(n_slots, 1), WIDE_TILE * tile_n), device=device, dtype=torch.float32)
+    return (units.data_ptr(), starts.data_ptr(), starts.shape[0] - 1, fixups.data_ptr(),
+            fixups.shape[0], tile_n), ws
 
 
 @functools.cache
@@ -136,35 +165,31 @@ def _kernels():
     p, i = ctypes.c_void_p, ctypes.c_int
     skinny, wide = lib.bndm_tri_matmul_skinny_f32, lib.bndm_tri_matmul_wide_f32
     skinny.argtypes = [p, p, p, p, i, i, i, p]
-    wide.argtypes = [p, p, p, p, p, p, i, p, i, i, i, p]
+    wide.argtypes = [p, p, p, p, p, p, i, p, i, i, i, i, p]
     skinny.restype = wide.restype = ctypes.c_int
     return skinny, wide
 
 
 def _launch(L, W, regime):
     """One K1 call on the card in the named design ("skinny", for M <=
-    :data:`SKINNY_MAX_M`, or "wide"), uncounted: :func:`tri_matmul` chooses
+    :data:`SKINNY_LIMIT_M`, or "wide"), uncounted: :func:`tri_matmul` chooses
     and counts; chip_smoke.py times both designs across the sweep through
     this."""
     n, m = W.shape
-    if regime not in ("skinny", "wide") or (regime == "skinny" and m > SKINNY_MAX_M):
+    if regime not in ("skinny", "wide") or (regime == "skinny" and m > SKINNY_LIMIT_M):
         raise ValueError(f"no {regime!r} design of K1 for M = {m}")
     out = torch.empty((n, m), device=W.device, dtype=torch.float32)
     skinny, wide = _kernels()
-    sched = _schedule_on(W.device, n, m, regime)
     with torch.cuda.device(W.device):
         stream = torch.cuda.current_stream(W.device).cuda_stream
         if regime == "skinny":
-            (pairs,) = sched
+            (pairs,) = _schedule_on(W.device, n, m, regime)
             err = skinny(L.data_ptr(), W.data_ptr(), out.data_ptr(), pairs.data_ptr(),
                          pairs.shape[0], n, m, stream)
         else:
-            units, starts, fixups, n_slots = sched
-            ws = torch.empty((max(n_slots, 1), WIDE_TILE * WIDE_TILE), device=W.device,
-                             dtype=torch.float32)
-            err = wide(L.data_ptr(), W.data_ptr(), out.data_ptr(), ws.data_ptr(),
-                       units.data_ptr(), starts.data_ptr(), starts.shape[0] - 1,
-                       fixups.data_ptr(), fixups.shape[0], n, m, stream)
+            sched, ws = _wide_args(W.device, n, m)
+            err = wide(L.data_ptr(), W.data_ptr(), out.data_ptr(), ws.data_ptr(), *sched, n, m,
+                       stream)
     if err != 0:
         raise RuntimeError(f"tri_matmul ({regime}) kernel launch failed with CUDA error {err}")
     return out
@@ -289,37 +314,43 @@ def _check_fused(L, gamma_cols, seeds):
         raise ValueError(f"seeds must be two host ints in [0, 2**32), got {seeds!r}")
 
 
+@functools.cache
 def _fused_kernel():
     from bndm_tpu_torch.ops import _build
 
     lib = _build.load("fused_bluenoise")
     fn = lib.bndm_fused_bluenoise_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
-                                           ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p]
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    fn.argtypes = [p] * 7 + [p, i, p, i, i, i, i, u, u, i, p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def fused_bluenoise_flat(L, gamma_cols, seeds, gbn_only=False):
     """(noise, bn, wn), each (n, M) fp32, for a LOWER-TRIANGULAR fp32 L (n, n),
-    gamma per column (M,) and two host-int ``seeds``, passed to the kernel by
+    gamma per column (M,) and two host-int ``seeds``, passed to the kernels by
     value. ``wn`` is white noise, ``bn = L @ wn``, ``noise = bn*(1-gamma) +
     wn*gamma`` (``bn`` for GBN). CPU tensors go to
     :func:`fused_bluenoise_flat_plain`; ``fused_bluenoise_flat.launches``
-    counts kernel launches."""
+    counts calls on the card (one each: the generator, the product and, where
+    the schedule cuts tiles, their fix-up are launched by one C call)."""
     _check_fused(L, gamma_cols, seeds)
     if L.device.type == "cpu":
         return fused_bluenoise_flat_plain(L, gamma_cols, seeds, gbn_only)
     if L.device.type != "cuda":
         raise ValueError(f"fused_bluenoise runs on cuda or cpu, not {L.device}")
     n, m = L.shape[0], gamma_cols.shape[0]
+    if gamma_cols.data_ptr() % 16:  # the epilogue reads gamma 4 columns at a time
+        gamma_cols = gamma_cols.clone()
     noise, bn, wn = (torch.empty((n, m), device=L.device, dtype=torch.float32)
                      for _ in range(3))
     fn = _fused_kernel()
     with torch.cuda.device(L.device):
+        sched, ws = _wide_args(L.device, n, m)
         stream = torch.cuda.current_stream(L.device).cuda_stream
         err = fn(L.data_ptr(), gamma_cols.data_ptr(), noise.data_ptr(), bn.data_ptr(),
-                 wn.data_ptr(), n, m, seeds[0], seeds[1], int(gbn_only), stream)
+                 wn.data_ptr(), ws.data_ptr(), *sched, n, m, seeds[0], seeds[1], int(gbn_only),
+                 stream)
     if err != 0:
         raise RuntimeError(f"fused_bluenoise kernel launch failed with CUDA error {err}")
     fused_bluenoise_flat.launches += 1

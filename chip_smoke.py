@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (bndm_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py             # every phase below
+    python3 chip_smoke.py --kernels   # phases 1-4 alone (K1-K3)
     python3 chip_smoke.py --probes    # phases 1, 2 and 5 alone (the probes)
 
 Drives the port's serving and training paths at full width with random
@@ -11,15 +12,18 @@ PyTorch version:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every kernel under bndm_tpu_torch/csrc, one nvcc each, at once;
   3. K1 (tri_matmul) against fp64 and its plain version over the M sweep
-     1-1500 on a random lower-triangular L and on the generated blue-noise
-     L, the same bits from a second call; both of its designs timed at each
-     M (the crossover); then K1 against torch.matmul in alternating turns
-     at M = 12, 768 and 1500, beside its plain version and the bound;
+     1-1500 on the TPU kernel test's L (tril(0.02 N(0,1)), unit diagonal)
+     and on the generated blue-noise L, the same bits from a second call;
+     both of its designs timed at each M (the crossover); then K1 against
+     torch.matmul in alternating turns at M = 12, 48, 96, 768 and 1500,
+     beside its plain version and the bound, its share of the fp32 FMA
+     bound and of the 3xTF32 tensor-core bound;
   4. K2 (fused_bluenoise_flat) against its plain version and fp64 at
-     M = 192, 7, 1500 on both L, the exact mix, the white noise's moments,
-     determinism, and K3's gamma gradient; its time beside the plain
-     version's, the unfused torch sequence's and the bound; K3's backward
-     (torch ops) timed beside its bound;
+     M = 7, 48, 96, 192, 768, 1500 on both L, the exact mix, GBN, the white
+     noise's moments, determinism, and K3's gamma gradient; K2 and the
+     unfused torch sequence timed in alternating turns at M = 192 and 1500,
+     beside the plain version and both bounds; K3's backward (torch ops)
+     timed beside its bound;
   5. the streaming probes P1-P3 (y + 1 in bf16) bitwise against their
      plain version at the full and ragged shapes, on edge values, every
      variant of the bench's sweep; each probe's variants and torch.add
@@ -72,11 +76,13 @@ import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA data-sheet peaks (dense): HBM bytes/s and fp32 FLOP/s on CUDA cores
+# NVIDIA data-sheet peaks (dense): HBM bytes/s, fp32 FLOP/s on the CUDA
+# cores, TF32 FLOP/s on the tensor cores (the data sheets' sparse figures
+# halved)
 PEAKS = {
-    "H100 PCIe": (2.0e12, 51e12),
-    "H100 NVL": (3.9e12, 60e12),
-    "H100": (3.35e12, 67e12),  # SXM5 (H100 80GB HBM3)
+    "H100 PCIe": (2.0e12, 51e12, 378e12),
+    "H100 NVL": (3.9e12, 60e12, 417.5e12),
+    "H100": (3.35e12, 67e12, 495e12),  # SXM5 (H100 80GB HBM3)
 }
 TOL = 2e-5  # rtol = atol: the bound tests/test_noise.py holds the JAX engine to
 
@@ -116,32 +122,84 @@ def peaks_for(name):
     return "H100", PEAKS["H100"]
 
 
-def k1_bound(n, m, peak_bytes, peak_flops):
-    """Least time for L @ W with L lower-triangular: the triangle of L, W
-    and the output each move once; n(n+1)/2 * m multiply-adds."""
-    nbytes = 4 * (n * (n + 1) // 2 + 2 * n * m)
-    flops = n * (n + 1) * m
+def roofline(nbytes, flops, peak_bytes, peak_flops):
+    """(least ms, what bounds it) for ``nbytes`` moved once and ``flops`` at
+    the peak rate of their type."""
     t_b, t_o = nbytes / peak_bytes, flops / peak_flops
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def product_bounds(nbytes, n, m, peak):
+    """The two bounds of a triangular product of n(n+1)/2 * m multiply-adds
+    that moves ``nbytes``: in fp32 FMAs on the CUDA cores, and in 3xTF32
+    (three TF32 products each) on the tensor cores."""
+    flops = n * (n + 1) * m
+    return {"fp32": roofline(nbytes, flops, peak[0], peak[1]),
+            "3xtf32": roofline(nbytes, 3 * flops, peak[0], peak[2])}
+
+
+def k1_bounds(n, m, peak):
+    """L @ W with L lower-triangular: the triangle of L, W and the output
+    each move once."""
+    return product_bounds(4 * (n * (n + 1) // 2 + 2 * n * m), n, m, peak)
+
+
+def k2_bounds(n, m, peak):
+    """K2: the triangle of L and gamma read once, noise, bn and wn written
+    once; the product's multiply-adds (the mix's three fp32 operations per
+    element and the generator's integer work are not counted)."""
+    return product_bounds(4 * (n * (n + 1) // 2 + m + 3 * n * m), n, m, peak)
 
 
 def k3_bound(n, m, peak_bytes, peak_flops):
     """Least time for K3's backward: grad, wn and bn read once, the (M,)
     gradient written once; a subtract, a multiply and an add per element."""
-    nbytes = 4 * (3 * n * m + m)
-    flops = 3 * n * m
-    t_b, t_o = nbytes / peak_bytes, flops / peak_flops
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+    return roofline(4 * (3 * n * m + m), 3 * n * m, peak_bytes, peak_flops)
 
 
-def k2_bound(n, m, peak_bytes, peak_flops):
-    """Least time for K2: the triangle of L and gamma read once, noise, bn
-    and wn written once; n(n+1)/2 * m multiply-adds and the mix's three
-    operations per element (the generator's integer work is not counted)."""
-    nbytes = 4 * (n * (n + 1) // 2 + m + 3 * n * m)
-    flops = n * (n + 1) * m + 3 * n * m
-    t_b, t_o = nbytes / peak_bytes, flops / peak_flops
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+def shares(row, bounds, route):
+    """Add to ``row`` the bound of ``route`` (the arithmetic the kernel
+    runs) and the kernel's share of both bounds."""
+    row["bound_ms"], row["bound_by"] = bounds[route]
+    for k, (ms, by) in bounds.items():
+        row[f"bound_{k}_ms"], row[f"bound_{k}_by"] = ms, by
+        row[f"share_{k}"] = ms / row["ms"]
+    return row
+
+
+def kernel_breakdown(torch, fn, flush, calls=5):
+    """Device time (us) per call of each CUDA kernel ``fn`` launches, by a
+    short name, from torch.profiler over ``calls`` calls with the L2 flushed
+    before each (the flush's own kernel left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in device_kernels(prof):
+        if "fill" in e.name.lower():  # the flush
+            continue
+        name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
+        name = re.split(r"[(<]", name)[0].split("::")[-1]
+        out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / calls
+    return out
+
+
+def tpu_test_L(torch, n):
+    """The TPU kernel test's L (tests/test_fused_noise_tpu.py:24-27):
+    tril(0.02 N(0,1)) from numpy's default_rng(0), unit diagonal, on the
+    card."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    L = np.tril(rng.standard_normal((n, n)).astype(np.float32) * 0.02)
+    np.fill_diagonal(L, 1.0)
+    return torch.from_numpy(L).cuda()
 
 
 def _counted():
@@ -298,25 +356,26 @@ def run_cli(argv):
     return tee.buf.getvalue()
 
 
-K1_SWEEP = (1, 7, 12, 24, 48, 96, 192, 768, 1500)  # 12: super-res; 768: res-128 train step
-K1_TIMED = (12, 768, 1500)  # 1500: a res-64 gallery batch of 500
+K1_SWEEP = (1, 7, 12, 16, 24, 32, 48, 64, 96, 192, 768, 1500)  # 12: super-res; 768: res-128 train
+K1_TIMED = (12, 48, 96, 768, 1500)  # 1500: a res-64 gallery batch of 500
+STEP0_M = (192, 1500)  # where the 3xTF32 arithmetic was first held to fp64
 
 
 def phase_k1(torch, L_blue, peak, flush):
-    """K1 over the M sweep on a random and on the blue-noise L: within TOL of
-    fp64 and of its plain version, the same bits from a second call. On the
-    blue L, each design's time at each M (the crossover), then K1 against
-    torch.matmul in alternating turns at the main path's shapes."""
-    from bndm_tpu_torch.ops.cuda_bluenoise import (SKINNY_MAX_M, _launch, tri_matmul,
-                                                   tri_matmul_plain)
+    """K1 over the M sweep on the TPU test's L and on the blue-noise L:
+    within TOL of fp64 and of its plain version, the same bits from a second
+    call. On the blue L, each design's time at each M (the crossover), then
+    K1 against torch.matmul in alternating turns at the main path's shapes
+    and around the crossover."""
+    from bndm_tpu_torch.ops import cuda_bluenoise as cb
+    from bndm_tpu_torch.ops.cuda_bluenoise import SKINNY_MAX_M, _launch, tri_matmul, tri_matmul_plain
 
+    skinny_limit = getattr(cb, "SKINNY_LIMIT_M", 64)  # the skinny kernel's own limit
     n = L_blue.shape[0]
     g = torch.Generator().manual_seed(0)
-    L_rand = torch.tril(torch.randn(n, n, generator=g) * 0.02)  # tests/conftest.py small_L
-    L_rand.fill_diagonal_(1.0)
     worst_plain = worst_fp64 = 0.0
-    sweep = []
-    for lname, L in (("random", L_rand.cuda()), ("blue", L_blue)):
+    sweep, step0 = [], []
+    for lname, L in (("tpu_test", tpu_test_L(torch, n)), ("blue", L_blue)):
         for m in K1_SWEEP:
             W = torch.randn(n, m, generator=g).cuda()
             out, again = tri_matmul(L, W), tri_matmul(L, W)
@@ -334,11 +393,13 @@ def phase_k1(torch, L_blue, peak, flush):
             check(ok, f"K1 disagrees at L={lname} M={m}")
             check(same, f"K1 is not deterministic at L={lname} M={m}")
             worst_plain, worst_fp64 = max(worst_plain, ep), max(worst_fp64, e64)
+            if m in STEP0_M:
+                step0.append((lname, m, e64))
             if lname == "blue":  # both designs, for the crossover
                 row = {"m": m, "design": "skinny" if m <= SKINNY_MAX_M else "wide",
                        "max_abs_err": ep, "max_abs_err_fp64": e64}
                 for design in ("skinny", "wide"):
-                    if design == "wide" or m <= SKINNY_MAX_M:
+                    if design == "wide" or m <= skinny_limit:
                         row[f"{design}_ms"] = time_ms(torch, lambda: _launch(L, W, design), 20,
                                                       flush)
                 row["matmul_ms"] = time_ms(torch, lambda: torch.matmul(L, W), 20, flush)
@@ -346,6 +407,8 @@ def phase_k1(torch, L_blue, peak, flush):
                 log(f"K1 M={m} designs (median, L2 flushed): skinny "
                     f"{row.get('skinny_ms', float('nan')):.4f} ms, wide {row['wide_ms']:.4f} "
                     f"ms, torch.matmul {row['matmul_ms']:.4f} ms; takes {row['design']}")
+    log("K1 wide design, the 3xTF32 arithmetic against fp64 (rtol=atol 2e-5): " + "; ".join(
+        f"L={lname} M={m} max|err| {e:.3e}" for lname, m, e in step0))
 
     rows = []
     for m in K1_TIMED:
@@ -355,16 +418,22 @@ def phase_k1(torch, L_blue, peak, flush):
                              "kernel": lambda: tri_matmul(L_blue, W)}, 5,
                             lambda fn: launch_times(torch, fn, iters, flush))
         plain_ms = time_ms(torch, lambda: tri_matmul_plain(L_blue, W), 10, flush)
-        bound_ms, bound_by = k1_bound(n, m, *peak)
-        s = next(r for r in sweep if r["m"] == m)
-        rows.append({"m": m, "design": s["design"], "ms": turns["kernel"],
-                     "library_ms": turns["library"], "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "bound_share": bound_ms / turns["kernel"],
-                     "max_abs_err": s["max_abs_err"], "max_abs_err_fp64": s["max_abs_err_fp64"]})
+        srow = next(r for r in sweep if r["m"] == m)
+        row = shares({"m": m, "design": srow["design"], "ms": turns["kernel"],
+                      "library_ms": turns["library"], "plain_ms": plain_ms,
+                      "max_abs_err": srow["max_abs_err"],
+                      "max_abs_err_fp64": srow["max_abs_err_fp64"]}, k1_bounds(n, m, peak),
+                     "fp32" if srow["design"] == "skinny" else "3xtf32")
+        if row["design"] == "wide":
+            row["kernels_us"] = kernel_breakdown(torch, lambda: tri_matmul(L_blue, W), flush)
+        rows.append(row)
         log(f"K1 M={m} times (median of 5 alternating turns, L2 flushed): kernel "
-            f"{turns['kernel']:.4f} ms ({s['design']}), torch.matmul {turns['library']:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-            f"{100 * bound_ms / turns['kernel']:.1f} % of the bound")
+            f"{row['ms']:.4f} ms ({row['design']}), torch.matmul {row['library_ms']:.4f} ms, "
+            f"plain {plain_ms:.4f} ms; bounds: fp32 FMAs {row['bound_fp32_ms']:.4f} ms "
+            f"({row['bound_fp32_by']}, {100 * row['share_fp32']:.1f} %), 3xTF32 "
+            f"{row['bound_3xtf32_ms']:.4f} ms ({row['bound_3xtf32_by']}, "
+            f"{100 * row['share_3xtf32']:.1f} %)"
+            + "".join(f"; {k} {v:.1f} us" for k, v in row.get("kernels_us", {}).items()))
     # what this timing charges any launch, and what one library call takes
     # to read the triangle's bytes
     one = torch.zeros(1, device="cuda")
@@ -373,25 +442,30 @@ def phase_k1(torch, L_blue, peak, flush):
     floor_ms = time_ms(torch, lambda: tri.sum(), 20, flush)
     log(f"K1 yardsticks (median, L2 flushed): a launch that writes 4 bytes {empty_ms:.4f} ms; "
         f"torch.sum over the triangle's {4 * tri.numel()} bytes (contiguous) {floor_ms:.4f} ms")
-    extra = {"crossover_m": SKINNY_MAX_M, "stream_floor_ms": floor_ms, "empty_launch_ms": empty_ms}
+    extra = {"crossover_m": SKINNY_MAX_M, "stream_floor_ms": floor_ms, "empty_launch_ms": empty_ms,
+             "step0_max_abs_err_fp64": [{"L": lname, "m": m, "err": e} for lname, m, e in step0]}
     return rows, sweep, extra, worst_plain, worst_fp64
 
 
+K2_CHECKED = (7, 48, 96, 192, 768, 1500)
+K2_TIMED = (192, 1500)  # the res-64 train step (batch 64 x 3 channels); a batch of 500
+
+
 def phase_k2(torch, L_blue, peak, flush):
-    """K2 against its plain version and fp64, the exact mix, the moments,
-    determinism and K3's gradient rule; then its times at the training
-    shape M = 192 (batch 64, 3 channels) and at M = 1500."""
+    """K2 against its plain version and fp64 on the TPU test's L (bn within
+    the TPU kernel's 1e-5) and on the blue-noise L (within TOL), the exact
+    mix, GBN, the moments, determinism and K3's gradient rule; then K2 and
+    the unfused torch sequence in alternating turns at M = 192 and 1500."""
     from bndm_tpu_torch.ops.cuda_bluenoise import (FusedBlueNoise, fused_bluenoise,
                                                    fused_bluenoise_flat,
                                                    fused_bluenoise_flat_plain)
 
     n = L_blue.shape[0]
     g = torch.Generator().manual_seed(10)
-    L_rand = torch.tril(torch.randn(n, n, generator=g) * 0.02)
-    L_rand.fill_diagonal_(1.0)
     worst = {"wn": 0.0, "bn_plain": 0.0, "bn_fp64": 0.0}
-    for lname, L in (("random", L_rand.cuda()), ("blue", L_blue)):
-        for m in (192, 7, 1500):
+    step0 = []
+    for lname, L, tol in (("tpu_test", tpu_test_L(torch, n), 1e-5), ("blue", L_blue, TOL)):
+        for m in K2_CHECKED:
             gamma = torch.rand(m, generator=g).cuda()
             seeds = (1000 + m, 77)
             noise, bn, wn = fused_bluenoise_flat(L, gamma, seeds)
@@ -401,24 +475,31 @@ def phase_k2(torch, L_blue, peak, flush):
             errs = {"wn": (wn - p_wn).abs().max().item(),
                     "bn_plain": (bn - p_bn).abs().max().item(),
                     "bn_fp64": (bn.double() - ref).abs().max().item()}
+            if lname == "tpu_test":  # the TPU kernel's own contract: absolute
+                fp64_ok = errs["bn_fp64"] < tol
+            else:
+                fp64_ok = torch.allclose(bn.double(), ref, rtol=tol, atol=tol)
             ok = (torch.allclose(wn, p_wn, rtol=1e-5, atol=1e-5)
-                  and torch.allclose(bn, p_bn, rtol=TOL, atol=TOL)
-                  and torch.allclose(bn.double(), ref, rtol=TOL, atol=TOL))
+                  and torch.allclose(bn, p_bn, rtol=TOL, atol=TOL) and fp64_ok)
             exact = torch.equal(noise, bn * (1.0 - gamma[None, :]) + wn * gamma[None, :])
             gbn = fused_bluenoise_flat(L, gamma, seeds, True)
             gbn_ok = all(torch.equal(a, b) for a, b in zip(gbn, (bn, bn, wn)))
             log(f"K2 L={lname} M={m}: max|err| wn vs plain {errs['wn']:.3e} (1e-5), bn vs "
-                f"plain {errs['bn_plain']:.3e}, vs fp64 {errs['bn_fp64']:.3e} ({TOL}); mix "
-                f"{'exact' if exact else 'NOT exact'}; GBN {'ok' if gbn_ok else 'FAIL'}")
+                f"plain {errs['bn_plain']:.3e} ({TOL}), vs fp64 {errs['bn_fp64']:.3e} ({tol}); "
+                f"mix {'exact' if exact else 'NOT exact'}; GBN {'ok' if gbn_ok else 'FAIL'}")
             check(ok, f"K2 disagrees at L={lname} M={m}")
             check(exact, f"K2's mix is not exact at L={lname} M={m}")
             check(gbn_ok, f"K2's GBN output is not bn at L={lname} M={m}")
             worst = {k: max(v, errs[k]) for k, v in worst.items()}
+            if m in STEP0_M:
+                step0.append((lname, m, errs["bn_fp64"]))
             if m >= 192:  # 4096 * 7 values are too few for the 0.02 bound
                 mean, var = wn.mean().item(), wn.var().item()
                 log(f"K2 L={lname} M={m}: wn mean {mean:+.5f}, variance {var:.5f}")
                 check(abs(mean) < 0.02 and abs(var - 1.0) < 0.02,
                       f"K2's white noise is not standard normal at M={m}")
+    log("K2 bn, the 3xTF32 arithmetic against fp64 (1e-5 on the TPU test's L, 2e-5 on the "
+        "blue L): " + "; ".join(f"L={lname} M={m} max|err| {e:.3e}" for lname, m, e in step0))
 
     gamma = torch.rand(192, generator=g).cuda()
     a, b = fused_bluenoise_flat(L_blue, gamma, (3, 4)), fused_bluenoise_flat(L_blue, gamma, (3, 4))
@@ -449,27 +530,37 @@ def phase_k2(torch, L_blue, peak, flush):
     check(grad_ok and tan_err <= 1e-6, "K3's gamma gradient disagrees")
 
     rows = []
-    for m in (192, 1500):
+    for m in K2_TIMED:
         gamma = torch.rand(m, generator=g).cuda()
-        iters = 30 if m < 1000 else 10
+        iters = 10 if m < 1000 else 5
 
         def unfused():  # what the unfused engine runs on the card, in torch
             w = torch.randn(n, m, device="cuda")
             return torch.matmul(L_blue, w) * (1.0 - gamma) + w * gamma
 
-        ms = time_ms(torch, lambda: fused_bluenoise_flat(L_blue, gamma, (3, 4)), iters, flush)
+        turns = alternating({"unfused": unfused,
+                             "kernel": lambda: fused_bluenoise_flat(L_blue, gamma, (3, 4))}, 5,
+                            lambda fn: launch_times(torch, fn, iters, flush))
         plain_ms = time_ms(torch, lambda: fused_bluenoise_flat_plain(L_blue, gamma, (3, 4)),
                            iters, flush)
-        unfused_ms = time_ms(torch, unfused, iters, flush)
-        bound_ms, bound_by = k2_bound(n, m, *peak)
-        rows.append({"m": m, "ms": ms, "plain_ms": plain_ms, "unfused_torch_ms": unfused_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by})
-        log(f"K2 M={m} times (median, L2 flushed): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"unfused torch.randn + torch.matmul + mix {unfused_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by})")
+        row = shares({"m": m, "ms": turns["kernel"], "plain_ms": plain_ms,
+                      "unfused_torch_ms": turns["unfused"]}, k2_bounds(n, m, peak), "3xtf32")
+        rows.append(row)
+        log(f"K2 M={m} times (median of 5 alternating turns, L2 flushed): kernel "
+            f"{row['ms']:.4f} ms, unfused torch.randn + torch.matmul + mix "
+            f"{row['unfused_torch_ms']:.4f} ms ({row['unfused_torch_ms'] / row['ms']:.2f}x the "
+            f"kernel's time), plain {plain_ms:.4f} ms; bounds: fp32 FMAs "
+            f"{row['bound_fp32_ms']:.4f} ms ({row['bound_fp32_by']}, "
+            f"{100 * row['share_fp32']:.1f} %), 3xTF32 {row['bound_3xtf32_ms']:.4f} ms "
+            f"({row['bound_3xtf32_by']}, {100 * row['share_3xtf32']:.1f} %)")
+
+        row["kernels_us"] = kernel_breakdown(
+            torch, lambda: fused_bluenoise_flat(L_blue, gamma, (3, 4)), flush)
+        log(f"K2 M={m} device time per call by kernel (torch.profiler, 5 calls, L2 flushed): "
+            + ", ".join(f"{k} {v:.1f} us" for k, v in row["kernels_us"].items()))
 
     k3_rows = []
-    for m in (192, 1500):
+    for m in K2_TIMED:
         _, bn, wn = fused_bluenoise_flat(L_blue, torch.rand(m, generator=g).cuda(), (7, 8))
         grad = torch.randn(n, m, generator=g).cuda()
 
@@ -478,12 +569,13 @@ def phase_k2(torch, L_blue, peak, flush):
 
         ms = time_ms(torch, backward, 30, flush)
         plain_ms = time_ms(torch, backward, 30, flush)
-        bound_ms, bound_by = k3_bound(n, m, *peak)
+        bound_ms, bound_by = k3_bound(n, m, peak[0], peak[1])
         k3_rows.append({"m": m, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by})
         log(f"K3 M={m} backward times (median, L2 flushed): {ms:.4f} ms (again: {plain_ms:.4f} "
             f"ms), bound {bound_ms:.4f} ms ({bound_by})")
-    return rows, worst, {"grad_max_abs_err": grad_err, "tangent_max_abs_err": tan_err}, k3_rows
+    extra = {"step0_max_abs_err_fp64": [{"L": lname, "m": m, "err": e} for lname, m, e in step0]}
+    return rows, worst, {"grad_max_abs_err": grad_err, "tangent_max_abs_err": tan_err}, k3_rows, extra
 
 
 def _edge_input(torch, shape, seed):
@@ -863,10 +955,10 @@ def phase_trace(torch):
 
 
 def main(argv):
-    if argv not in ([], ["--probes"]):
-        log(f"FAIL: unknown arguments {argv} (the only option is --probes)")
+    if argv not in ([], ["--kernels"], ["--probes"]):
+        log(f"FAIL: unknown arguments {argv} (the options are --kernels and --probes)")
         return 2
-    probes_only = argv == ["--probes"]
+    only = argv[0] if argv else None
     if not os.path.isdir(os.path.join(HERE, "bndm_tpu_torch")):
         log("FAIL: bndm_tpu_torch/ is not beside chip_smoke.py (run it from the repository)")
         return 1
@@ -887,7 +979,8 @@ def main(argv):
     kind = torch.cuda.get_device_name(0)
     peak_key, peak = peaks_for(kind)
     log(f"torch {torch.__version__} (CUDA {torch.version.cuda}), device {kind}, peaks of "
-        f"{peak_key}: {peak[0] / 1e12:.2f} TB/s, {peak[1] / 1e12:.0f} TFLOP/s fp32")
+        f"{peak_key}: {peak[0] / 1e12:.2f} TB/s, {peak[1] / 1e12:.0f} TFLOP/s fp32, "
+        f"{peak[2] / 1e12:.1f} TFLOP/s TF32")
     t_start = time.time()
 
     # 2. build
@@ -896,7 +989,7 @@ def main(argv):
     t0 = time.time()
     libs = _build.build_all()
     log(f"build: {sorted(libs)} in {time.time() - t0:.1f}s")
-    if probes_only:  # phase 5 alone
+    if only == "--probes":  # phase 5 alone
         return finish(torch, kind, probe_kernels(phase_probes(torch, peak[0])), t_start)
 
     with tempfile.TemporaryDirectory(prefix="bndm_chip_smoke_") as work, \
@@ -910,9 +1003,11 @@ def main(argv):
         flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB > L2
 
         # 3-4. K1, K2 and K3
-        rows, k1_sweep, k1_extra, err_plain, err_fp64 = phase_k1(torch, L_blue, peak, flush)
-        k2_rows, k2_err, k3_err, k3_rows = phase_k2(torch, L_blue, peak, flush)
+        k1 = phase_k1(torch, L_blue, peak, flush)
+        k2 = phase_k2(torch, L_blue, peak, flush)
         del flush
+        if only == "--kernels":  # phases 3-4 alone: no path driven, no launches counted
+            return finish(torch, kind, k_kernels(k1, k2, None), t_start)
         # 5. the streaming probes and their bench entry points
         probes = phase_probes(torch, peak[0])
         torch.cuda.empty_cache()
@@ -932,14 +1027,28 @@ def main(argv):
         # 11. where a served step's time goes
         phase_trace(torch)
 
+    kernels = k_kernels(k1, k2, (sr["launches"], tr["launches"], tr["k3_launches"]))
+    kernels += probe_kernels(probes)
+    log(f"train: {tr['images_per_s']:.2f} images/s over steps 2-8, first step "
+        f"{tr['first_step_s']:.3f} s (batch 64)")
+    return finish(torch, kind, kernels, t_start)
+
+
+def k_kernels(k1, k2, launches):
+    """The kernels line's rows of K1-K3 from phases 3 and 4; ``launches``
+    (K1 in super-res serving, K2 and K3 in training) or None where no path
+    was driven."""
+    rows, k1_sweep, k1_extra, err_plain, err_fp64 = k1
+    k2_rows, k2_err, k3_err, k3_rows, k2_extra = k2
+    k1_n, k2_n, k3_n = launches or (None, None, None)
     main_row = next(r for r in rows if r["m"] == 12)  # the super-res request's shape
     k2_row = next(r for r in k2_rows if r["m"] == 192)  # the train step's shape
-    kernels = [{
+    return [{
         "name": "tri_matmul",
         "route": "cuda",
         "source": "bndm_tpu_torch/csrc/tri_matmul.cu",
         "replaces": "bndm_tpu/ops/pallas_bluenoise.py:74",
-        "launches": sr["launches"],
+        "launches": k1_n,
         "max_abs_err": err_plain,
         "max_abs_err_fp64": err_fp64,
         "ms": main_row["ms"],
@@ -960,7 +1069,7 @@ def main(argv):
         "route": "cuda",
         "source": "bndm_tpu_torch/csrc/fused_bluenoise.cu",
         "replaces": "bndm_tpu/ops/pallas_bluenoise.py:205",
-        "launches": tr["launches"],
+        "launches": k2_n,
         "max_abs_err": max(k2_err["wn"], k2_err["bn_plain"]),
         "max_abs_err_wn": k2_err["wn"],
         "max_abs_err_fp64": k2_err["bn_fp64"],
@@ -973,6 +1082,7 @@ def main(argv):
         "unfused_torch_ms": k2_row["unfused_torch_ms"],
         "unfused_torch": "torch.randn + torch.matmul + the mix, three calls",
         "shape": "L (4096, 4096), gamma (192,) -> noise, bn, wn (4096, 192)",
+        **k2_extra,
         "by_m": k2_rows,
     }, {
         "name": "fused_bluenoise_grad",
@@ -981,7 +1091,7 @@ def main(argv):
         "replaces": "bndm_tpu/ops/pallas_bluenoise.py:244",
         "note": "FusedBlueNoise.backward: torch ops on the card, no kernel of its own (the "
                 "JAX JVP is jnp); its plain version is itself, timed twice",
-        "launches": tr["k3_launches"],
+        "launches": k3_n,
         "max_abs_err": k3_err["grad_max_abs_err"],
         "tangent_max_abs_err": k3_err["tangent_max_abs_err"],
         "ms": k3_rows[0]["ms"],
@@ -992,10 +1102,6 @@ def main(argv):
         "shape": "grad, wn, bn (4096, 192) -> (192,)",
         "by_m": k3_rows,
     }]
-    kernels += probe_kernels(probes)
-    log(f"train: {tr['images_per_s']:.2f} images/s over steps 2-8, first step "
-        f"{tr['first_step_s']:.3f} s (batch 64)")
-    return finish(torch, kind, kernels, t_start)
 
 
 def probe_kernels(probes):

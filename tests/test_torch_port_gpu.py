@@ -59,12 +59,19 @@ def test_tri_matmul_small_and_odd_n():
                                    rtol=2e-5, atol=2e-5)
 
 
+def _sweep():
+    from bndm_tpu_torch.ops.cuda_bluenoise import SKINNY_MAX_M
+
+    return sorted({1, 7, 12, 24, 48, 96, 192, 768, 1500, SKINNY_MAX_M, SKINNY_MAX_M + 1})
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [1, 7, 12, 24, 48, 96, 192, 768, 1500])
+@pytest.mark.parametrize("m", _sweep())
 def test_tri_matmul_m_sweep_is_right_and_deterministic(m):
-    """K1 over the M sweep of chip_smoke.py phase 3 (both designs): within
-    2e-5 of fp64 and of the plain version, and the same bits on a second
-    call (no float atomics, fixed summation order)."""
+    """K1 over the M sweep of chip_smoke.py phase 3 and both sides of the
+    crossover (both designs): within 2e-5 of fp64 and of the plain version,
+    and the same bits on a second call (no float atomics, fixed summation
+    order)."""
     _cuda_or_skip()
     L = _random_L(4096, 100 + m)
     w = torch.randn(4096, m, generator=torch.Generator().manual_seed(m)).cuda()
@@ -121,7 +128,7 @@ def test_tri_matmul_rejects_mixed_devices():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [1, 7, 33, 192, 1500])
+@pytest.mark.parametrize("m", [1, 7, 33, 48, 96, 192, 768, 1500])
 @pytest.mark.parametrize("gbn_only", [False, True])
 def test_fused_bluenoise_kernel_matches_plain(m, gbn_only):
     """K2 on the card: its white noise equals the plain version's bits to
@@ -160,6 +167,23 @@ def test_fused_bluenoise_moments_and_determinism():
 
 
 @pytest.mark.gpu
+def test_fused_bluenoise_split_tiles_give_the_same_bits():
+    """At M = 192 the schedule cuts tiles between blocks, so their partial
+    sums go through the fix-up kernel (which also writes the mix): a second
+    call gives the same bits in all three outputs."""
+    from bndm_tpu_torch.ops.cuda_bluenoise import _schedule_on
+
+    _cuda_or_skip()
+    L = _random_L(4096, 4)
+    gamma = torch.rand(192, generator=torch.Generator().manual_seed(4)).cuda()
+    assert _schedule_on(L.device, 4096, 192, "wide")[2].shape[0] > 0  # fix-ups
+    first = fused_bluenoise_flat(L, gamma, (9, 10))
+    again = fused_bluenoise_flat(L, gamma, (9, 10))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
 def test_fused_bluenoise_small_and_odd_n():
     """n that is not a multiple of any tile: rows, K and columns all masked."""
     _cuda_or_skip()
@@ -174,11 +198,12 @@ def test_fused_bluenoise_small_and_odd_n():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch", [8, 64, 500])
+@pytest.mark.parametrize("batch", [8, 16, 32, 64, 256, 500])
 def test_fused_bluenoise_meets_the_tpu_kernels_contract(batch):
     """tests/test_fused_noise_tpu.py's contract, on its L: bn within 1e-5
     (absolute) of fp64 L @ wn, the mix exact, the same key the same noise;
-    at its batch of 8, at the training batch and at a serving batch."""
+    at its batch of 8, at M = 48, 96 and 768 (batch 16, 32, 256), at the
+    training batch and at a serving batch."""
     import numpy as np
 
     _cuda_or_skip()
