@@ -73,6 +73,17 @@ def noise_folder_name(noise_type):
     }[noise_type]
 
 
+def serving_relax_kw(args):
+    """Serving-only relaxations of the model config asked for on the CLI, as
+    keyword arguments of ``dataclasses.replace`` on the serving model's
+    config; calibration keeps the exact model (fp32 softmax)."""
+    kw = {}
+    dt = getattr(args, "attn_softmax_dtype", "float32")
+    if dt != "float32":
+        kw["attn_softmax_dtype"] = dt
+    return kw
+
+
 def load_L_for(noise_type, bluenoise_dir="bluenoise"):
     kind = "red" if noise_type == "gaussianRN" else "blue"
     return load_cov_L(res=64, dimension=3, kind=kind,

@@ -14,8 +14,16 @@ Usage (the reference's scripts, with this module):
          --nb_steps=250 --test_samples=30000 --noise_type=gaussianBN \
          --scheduler_gamma=sigmoid --scheduler_param=1000 --out_channel=6
 
-Flags of features the port does not have yet raise ``NotImplementedError``
-naming their ROADMAP.md item; none is ignored.
+The test modes serve through the tiers of ``bndm_tpu_torch/serving.py``
+as the JAX CLI does: ``--conv_int8`` (``--int8_mode``), ``--static_gn``,
+``--gn_carry``, ``--cache_interval``/``--cache_depth``,
+``--attn_softmax_dtype`` (the serving model only) and ``--microbatch``,
+with the JAX CLI's checks of their combinations; as there, super-res
+leaves ``--gn_carry`` out and checks only ``--static_gn``. The sampling
+flags have no effect in train mode, where ``--conv_int8`` trains through
+the straight-through int8 convs and ``--attn_softmax_dtype`` is honored.
+The multi-host flags raise ``NotImplementedError`` naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -109,29 +117,25 @@ def parse_args(argv=None):
 
 def _check_supported(opt):
     """Raise for every flag whose feature the port does not have yet."""
-    later = [
-        (opt.microbatch is not None, "--microbatch",
-         "sample_iadb_microbatched (ROADMAP.md queue 1, item 4)"),
-        (opt.cache_interval is not None, "--cache_interval",
-         "the feature-reuse serving tier (ROADMAP.md queue 1, item 9a)"),
-        (opt.cache_depth != 1, "--cache_depth",
-         "the feature-reuse serving tier (ROADMAP.md queue 1, item 9a)"),
-        (opt.attn_softmax_dtype != "float32", "--attn_softmax_dtype",
-         "the bf16-softmax serving tier (ROADMAP.md queue 1, item 9a)"),
-        (opt.conv_int8, "--conv_int8",
-         "the int8 serving tier (ROADMAP.md queue 1, item 9b)"),
-        (opt.gn_carry, "--gn_carry",
-         "the GN-stats-carry serving tier (ROADMAP.md queue 1, item 9c)"),
-        (opt.static_gn, "--static_gn",
-         "the static-GN serving tier (ROADMAP.md queue 1, item 9e)"),
-        (opt.coordinator_address is not None or opt.num_processes is not None
-         or opt.process_id is not None, "the multi-host flags",
-         "parallelism (ROADMAP.md queue 1, item 12)"),
-    ]
-    for asked, flag, item in later:
-        if asked:
-            raise NotImplementedError(
-                f"{flag} needs {item}, which the PyTorch port does not have yet")
+    if opt.coordinator_address is not None or opt.num_processes is not None \
+            or opt.process_id is not None:
+        raise NotImplementedError(
+            "the multi-host flags need parallelism (ROADMAP.md queue 1, item 12), "
+            "which the PyTorch port does not have yet")
+
+
+def _check_serving_flags(opt):
+    """The JAX CLI's checks of the serving flags' combinations."""
+    if opt.static_gn and opt.scheduler_alpha != "linear":
+        raise SystemExit("--static_gn requires the linear alpha schedule "
+                         "(the per-step GN tables are indexed by "
+                         "round(alpha*T) — ops/static_norm.py)")
+    if opt.gn_carry and opt.static_gn:
+        raise SystemExit("--gn_carry and --static_gn both replace GroupNorm "
+                         "— pick one")
+    if opt.gn_carry and not (opt.cache_interval and opt.cache_interval > 1):
+        raise SystemExit("--gn_carry reuses stats across a cached group — "
+                         "it requires --cache_interval > 1")
 
 
 def build(opt, device):
@@ -150,15 +154,25 @@ def build(opt, device):
             down_block_types=("DownBlock2D", "AttnDownBlock2D"),
             up_block_types=("AttnUpBlock2D", "UpBlock2D"),
             attention_head_dim=4, norm_num_groups=4,
-            act_fn=opt.activation, dtype=opt.compute_dtype,
+            act_fn=opt.activation, dtype=opt.compute_dtype, conv_int8=opt.conv_int8,
         )
     else:
         mcfg = unet_config_for_res(opt.res, in_channels=in_ch, out_channels=opt.out_channel,
-                                   act_fn=opt.activation, dtype=opt.compute_dtype)
+                                   act_fn=opt.activation, dtype=opt.compute_dtype,
+                                   conv_int8=opt.conv_int8)
+    kw = {}
+    if opt.cache_depth != 1:
+        kw["cache_depth"] = opt.cache_depth
     if opt.norm_dtype != "float32":
+        kw["norm_dtype"] = opt.norm_dtype
+    if opt.attn_softmax_dtype != "float32" and opt.train_or_test == "train":
+        # test mode relaxes the serving model only (serving_relax_kw)
+        print(f"NOTE: training with attention softmax in {opt.attn_softmax_dtype}")
+        kw["attn_softmax_dtype"] = opt.attn_softmax_dtype
+    if kw:
         import dataclasses
 
-        mcfg = dataclasses.replace(mcfg, norm_dtype=opt.norm_dtype)
+        mcfg = dataclasses.replace(mcfg, **kw)
     model = UNet2D(mcfg, device=device)
     tcfg = TrainConfig(
         nb_steps=opt.nb_steps,
@@ -264,14 +278,6 @@ def run_train(opt, device):
     return out_dir
 
 
-def _load_model(model, out_dir):
-    """Load the run folder's weights strictly, then cast for serving."""
-    from bndm_tpu_torch.cli.common import load_pixel_unet_params
-
-    model.load_state_dict(load_pixel_unet_params(out_dir), strict=True)
-    return model.cast_params_().eval()
-
-
 def _schedule_params(opt, out_dir):
     if opt.optimize_scheduler_param:
         return np.loadtxt(os.path.join(out_dir, "scheduler_params.txt")).astype(np.float32)
@@ -279,19 +285,60 @@ def _schedule_params(opt, out_dir):
                     np.float32)
 
 
+def _serving(opt, device, cfg, out_dir, sched, calib_inputs, gn_carry):
+    """The served models of the test modes: the run folder's weights loaded
+    strictly into the serving model (the tiers the flags ask for); with a
+    calibrated tier, its constants recorded first on one exact trajectory
+    from ``calib_inputs() -> (x_cal, x_c_cal or None)``. Returns ``(model,
+    cached)``: the serving model and, with ``--cache_interval``, the
+    cached chain's ``(apply_full, apply_shallow)`` (the GN-stats carry's
+    when ``gn_carry``), else None."""
+    from bndm_tpu_torch.cli.common import load_pixel_unet_params, serving_relax_kw
+    from bndm_tpu_torch.ops.int8 import calibrate_sampling
+    from bndm_tpu_torch.serving import cached_forwards, carry_models, serving_model_pair
+
+    sd = load_pixel_unet_params(out_dir)
+    m_cal, model = serving_model_pair(
+        cfg, sd, device=device, int8_static=opt.conv_int8 and opt.int8_mode == "static",
+        static_gn=opt.static_gn, gn_steps=opt.nb_steps, relax_kw=serving_relax_kw(opt))
+    pair = carry_models(model, sd) if gn_carry else ()
+    if m_cal is not None:
+        t0 = time.time()
+        x_cal, x_c_cal = calib_inputs()
+        quant = calibrate_sampling(m_cal, x_cal, x_c=x_c_cal, **sched)
+        del m_cal
+        for m in (model,) + pair:
+            m.load_quant(quant)
+        print(f"serving calibration: {time.time() - t0:.1f}s ({len(quant)} calibrated sites)")
+    if not (opt.cache_interval and opt.cache_interval > 1):
+        return model, None
+    if gn_carry:
+        return model, cached_forwards(pair, carry="carry")
+    return model, cached_forwards(model)
+
+
 def run_test(opt, device):
     from bndm_tpu_torch.cli.common import (AsyncImageWriter, make_generator,
                                            noise_folder_name, save_image_grid,
                                            synchronize)
-    from bndm_tpu_torch.samplers.iadb import sample_iadb
+    from bndm_tpu_torch.samplers.iadb import (sample_iadb, sample_iadb_cached,
+                                              sample_iadb_microbatched)
 
-    model, tcfg, L, out_dir = build(opt, device)
+    _check_serving_flags(opt)
+    model, tcfg, L, out_dir = build(opt, "meta")
     fname = f"{opt.dataset}_iadb_{noise_folder_name(opt.noise_type)}_steps{opt.nb_steps}"
     for sub in ("images", "seqs", "noise"):
         os.makedirs(os.path.join(out_dir, fname, sub), exist_ok=True)
 
-    model = _load_model(model, out_dir)
     sp = _schedule_params(opt, out_dir)
+    sched = dict(nb_steps=opt.nb_steps, scheduler_alpha=opt.scheduler_alpha,
+                 alpha_param=opt.scheduler_param, scheduler_gamma=opt.scheduler_gamma,
+                 gamma_params=tuple(float(v) for v in sp), two_head=tcfg.two_head)
+    model, cached = _serving(
+        opt, device, model.cfg, out_dir, sched,
+        lambda: (torch.randn((min(8, opt.batch_size), 3, opt.res, opt.res),
+                             generator=make_generator(device, opt.seed, 777), device=device),
+                 None), opt.gn_carry)
 
     total = opt.test_samples
     nb_batches = -(-total // opt.batch_size)
@@ -336,14 +383,25 @@ def run_test(opt, device):
             x0 = x0[0:1]
             bs = 1
 
+        # a batch above the microbatch runs microbatch by microbatch, never
+        # as one batch; a ragged last batch is padded with zero rows (samples
+        # are independent) and cut back
+        use_mb = opt.microbatch and x0.shape[0] > opt.microbatch
+        mb_pad = (-x0.shape[0]) % opt.microbatch if use_mb else 0
+
         def _run():
-            s, f = sample_iadb(
-                model, x0,
-                nb_steps=opt.nb_steps, scheduler_alpha=opt.scheduler_alpha,
-                alpha_param=opt.scheduler_param, scheduler_gamma=opt.scheduler_gamma,
-                gamma_params=tuple(float(v) for v in sp), two_head=tcfg.two_head,
-                collect_frames=True,
-            )
+            if use_mb:
+                xin = torch.cat([x0, x0.new_zeros((mb_pad,) + x0.shape[1:])]) if mb_pad else x0
+                s = sample_iadb_microbatched(
+                    cached[0] if cached else model, xin, microbatch=opt.microbatch,
+                    apply_shallow=cached[1] if cached else None,
+                    cache_interval=opt.cache_interval if cached else None, **sched)
+                s, f = s[:x0.shape[0]], None
+            elif cached:
+                s, f = sample_iadb_cached(*cached, x0, cache_interval=opt.cache_interval,
+                                          **sched), None
+            else:
+                s, f = sample_iadb(model, x0, collect_frames=True, **sched)
             synchronize(device)
             return s, f
 
@@ -363,7 +421,7 @@ def run_test(opt, device):
             writer.submit(to_save, img_path)
         else:
             save_image_grid(to_save, img_path)
-        for j, fr in enumerate(frames):
+        for j, fr in enumerate(frames if frames is not None else ()):
             save_image_grid(fr, os.path.join(
                 out_dir, fname, "seqs",
                 f"{noise_folder_name(opt.noise_type)}_img{cnt:05d}_step{j}_{{0}}.png"))
@@ -389,30 +447,48 @@ def run_superres_test(opt, device):
     """Conditional super-res eval: for each test image, condition on the
     bilinear down-x4-up image, initialize x0 with the blue-noise mix (unlike
     the unconditional path, the conditional one DOES blue-initialize), sample,
-    report SSIM/PSNR/L2/L1."""
+    report SSIM/PSNR/L2/L1. The serving tiers apply as in :func:`run_test`
+    but for ``--gn_carry``, which this mode leaves out as the JAX CLI does
+    (with only that CLI's check of ``--static_gn`` here); each request is
+    one image, so --microbatch never splits one."""
     from bndm_tpu_torch.cli.common import (make_generator, noise_folder_name,
                                            save_image_grid, synchronize)
     from bndm_tpu_torch.data.imagefolder import ImageFolderDataset
     from bndm_tpu_torch.ops.noise import get_noise
     from bndm_tpu_torch.ops.schedules import gamma_schedule
-    from bndm_tpu_torch.samplers.iadb import sample_iadb
+    from bndm_tpu_torch.samplers.iadb import sample_iadb, sample_iadb_cached
     from bndm_tpu_torch.utils.image import superres_condition
     from bndm_tpu_torch.utils.metrics import psnr, ssim
 
-    model, tcfg, L, out_dir = build(opt, device)
+    if opt.static_gn and opt.scheduler_alpha != "linear":
+        raise SystemExit("--static_gn requires the linear alpha schedule")
+    if opt.gn_carry:
+        print("--gn_carry: not applied in super-res (the unconditional mode carries the "
+              "GroupNorm statistics)")
+    model, tcfg, L, out_dir = build(opt, "meta")
     L = torch.from_numpy(L).to(device)
     fname = f"{opt.dataset}_iadb_{noise_folder_name(opt.noise_type)}_{opt.conditional_type}_steps{opt.nb_steps}"
     for sub in ("images", "seqs", "lowres", "highres"):
         os.makedirs(os.path.join(out_dir, fname, sub), exist_ok=True)
 
-    model = _load_model(model, out_dir)
     sp = _schedule_params(opt, out_dir)
+    sched = dict(nb_steps=opt.nb_steps, scheduler_alpha=opt.scheduler_alpha,
+                 alpha_param=opt.scheduler_param, scheduler_gamma=opt.scheduler_gamma,
+                 gamma_params=tuple(float(v) for v in sp), two_head=tcfg.two_head)
 
     ds = ImageFolderDataset(os.path.join(opt.data_root, opt.dataset + "_test"), opt.res,
                             random_flip=False)
     # paper indices; fall back to the first ones for small sets
     wanted = [73, 103, 277, 388]
     indices = [i for i in wanted if i < len(ds)] or list(range(min(len(ds), 4)))
+
+    def calib_inputs():
+        """White x0 and the conditioning of the first (up to 8) test images."""
+        x1 = torch.stack([torch.from_numpy(ds.get(i)) for i in indices[:8]]).to(device) * 2.0 - 1.0
+        return (torch.randn(x1.shape, generator=make_generator(device, opt.seed, 777),
+                            device=device), superres_condition(x1, downscale=4))
+
+    model, cached = _serving(opt, device, model.cfg, out_dir, sched, calib_inputs, False)
 
     agg = {"ssim": 0.0, "psnr": 0.0, "l2": 0.0, "l1": 0.0}
     for i in indices:
@@ -427,13 +503,11 @@ def run_superres_test(opt, device):
         # draws fresh and needs its own stream
         x0 = get_noise(x0, L, g, noise_type=opt.noise_type, train=False, inplace=True,
                        generator=make_generator(device, opt.seed, 10_000 + i)).noise
-        sample, _ = sample_iadb(
-            model, x0,
-            nb_steps=opt.nb_steps, scheduler_alpha=opt.scheduler_alpha,
-            alpha_param=opt.scheduler_param, scheduler_gamma=opt.scheduler_gamma,
-            gamma_params=tuple(float(v) for v in sp), two_head=tcfg.two_head,
-            x_c=x_c,
-        )
+        if cached:
+            sample = sample_iadb_cached(*cached, x0, cache_interval=opt.cache_interval,
+                                        x_c=x_c, **sched)
+        else:
+            sample, _ = sample_iadb(model, x0, x_c=x_c, **sched)
         synchronize(device)
         dt = time.time() - t0
         print(f"image {i}: 1 sample in {dt:.2f}s ({1 / dt:.2f} samples/s)")

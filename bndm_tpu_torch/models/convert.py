@@ -13,6 +13,12 @@ Layout rules (flax -> torch; the reverse inverts them):
   dense kernel (I, O)         -> weight (O, I)
   norm scale/bias             -> weight/bias
   path ("down_blocks_0", "resnets_1") -> "down_blocks.0.resnets.1"
+
+The serving tiers' state outside the params (the flax ``quant`` and
+``gnstats`` collections: int8 activation amax, calibrated GroupNorm
+tables, carried per-sample statistics) crosses by the same path rule
+through ``collection_from_flax`` into the flat names
+``UNet2D.quant_state`` / ``UNet2D.gnstats`` use.
 """
 
 from __future__ import annotations
@@ -69,6 +75,26 @@ def state_dict_from_flax(params):
             raise ValueError(f"unexpected leaf {leaf} at {base}")
     # np.array copies: the leaves may be read-only views (np.load, jax)
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def collection_from_flax(tree):
+    """A flax variable collection other than params (``quant``,
+    ``gnstats``; numpy or jax leaves) -> ``{"<module>.<leaf>": tensor}``
+    in the port's module names, e.g. ("down_blocks_0", "resnets_0",
+    "conv1", "act_amax") -> "down_blocks.0.resnets.0.conv1.act_amax".
+    Leaves keep their layout: the collections hold only per-site scalars
+    and per-group (T, G) / (B, G) tables."""
+    out = {}
+
+    def walk(node, prefix):
+        for name, val in node.items():
+            if isinstance(val, dict):
+                walk(val, prefix + (name,))
+            else:
+                out[f"{_torch_name(prefix)}.{name}"] = torch.from_numpy(np.array(val))
+
+    walk(tree, ())
+    return out
 
 
 def canonical_state_dict(sd):

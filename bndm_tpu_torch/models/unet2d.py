@@ -14,6 +14,16 @@ the attention softmax in ``attn_softmax_dtype``; ``conv_out`` in
 weights of the JAX package (through :mod:`bndm_tpu_torch.models.convert`) and
 the reference's torch checkpoints load with ``strict=True``. Layout is NCHW
 throughout.
+
+Serving tiers (the JAX package's ``UNet2D`` fields of the same names):
+``conv_int8``/``int8_mode``/``int8_wide`` swap conv sites for
+:class:`~bndm_tpu_torch.ops.int8.Int8Conv2d`, ``gn_mode``/``gn_steps``
+swap the GroupNorms for :class:`~bndm_tpu_torch.ops.static_norm.CalGroupNorm`,
+and ``cache_depth`` sets the split point of the feature-reuse forward
+(``return_deep`` / ``deep_feature``). Their calibrated constants and
+carried statistics are buffers outside the state_dict:
+:meth:`UNet2D.quant_state` / :meth:`UNet2D.load_quant` and
+:meth:`UNet2D.gnstats` / :meth:`UNet2D.load_gnstats`.
 """
 
 from __future__ import annotations
@@ -25,6 +35,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from bndm_tpu_torch.ops.int8 import Int8Conv2d
+from bndm_tpu_torch.ops.static_norm import CalGroupNorm, gn_step_index
 
 
 def _mish(x):
@@ -42,15 +55,9 @@ ACT = {
 # fields of later tiers: they exist so configurations carry over, and a
 # non-default value raises until its ROADMAP item lands
 _LATER = {
-    "conv_int8": (False, "the int8 serving tier (ROADMAP queue 1, item 9b)"),
-    "int8_wide": (False, "the int8 serving tier (ROADMAP queue 1, item 9b)"),
     "fast_upsample": (False, "the latent pipeline's subpixel upsample "
                              "(ROADMAP queue 1, item 11)"),
-    "gn_mode": ("dynamic", "the GroupNorm serving tiers (ROADMAP queue 1, "
-                           "items 9c-9e)"),
-    "cache_depth": (1, "the feature-reuse serving tier (ROADMAP queue 1, "
-                       "item 9a)"),
-    "dropout": (0.0, "training (ROADMAP queue 1, item 5)"),
+    "dropout": (0.0, "the DDIM training path (ROADMAP queue 1, item 10)"),
 }
 
 
@@ -89,6 +96,17 @@ class UNet2DConfig:
     conv_out_dtype: str = "float32"  # the final conv's compute/output dtype
     attn_softmax_dtype: str = "float32"  # fp32 = diffusers upcast_softmax
     cache_depth: int = 1
+
+    @property
+    def int8_arg(self):
+        """Value for the conv sites: False (fp conv) or the int8 mode."""
+        return self.int8_mode if self.conv_int8 else False
+
+    @property
+    def int8_wide_arg(self):
+        """int8 mode for the normally-fp sites (shortcut, downsampler,
+        conv_in), only under int8_wide."""
+        return self.int8_mode if (self.conv_int8 and self.int8_wide) else False
 
     @property
     def compute_dtype(self):
@@ -197,17 +215,36 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+
+
 class GroupNorm(nn.GroupNorm):
-    """``nn.GroupNorm`` that normalizes in ``compute_dtype`` and returns it."""
+    """``nn.GroupNorm`` that normalizes in ``compute_dtype`` and returns it.
+    ``step_idx`` is accepted and unused, as by the calibrated norms."""
 
     def __init__(self, num_groups, num_channels, eps, compute_dtype):
         super().__init__(num_groups, num_channels, eps=eps)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x):
+    def forward(self, x, step_idx=None):
         dt = self.compute_dtype
         return F.group_norm(x.to(dt), self.num_groups, self.weight.to(dt),
                             self.bias.to(dt), self.eps)
+
+
+def _gn(groups, channels, eps, dtype, mode="dynamic", steps=0):
+    """The dynamic GroupNorm, or a CalGroupNorm in ``mode``."""
+    if mode == "dynamic":
+        return GroupNorm(groups, channels, eps, dtype)
+    return CalGroupNorm(groups, channels, eps, dtype, mode, steps)
+
+
+def _conv(int8, cin, cout, kernel_size, dtype, stride=1, padding=1):
+    """The fp conv, or an Int8Conv2d when ``int8`` names a mode (True means
+    'dynamic'); both have the same parameters."""
+    if int8:
+        mode = int8 if isinstance(int8, str) else "dynamic"
+        return Int8Conv2d(cin, cout, kernel_size, dtype, mode, stride=stride, padding=padding)
+    return Conv2d(cin, cout, kernel_size, dtype, stride=stride, padding=padding)
 
 
 class TimestepEmbedding(nn.Module):
@@ -221,31 +258,52 @@ class TimestepEmbedding(nn.Module):
 
 
 class ResnetBlock2D(nn.Module):
+    """``int8``: the int8 mode of conv1/conv2 (False: fp); the shortcut
+    takes it too only under ``int8_wide``."""
+
     def __init__(self, in_channels, out_channels, temb_channels, act_fn="silu",
-                 groups=32, eps=1e-5, dtype=torch.float32, norm_dtype=torch.float32):
+                 groups=32, eps=1e-5, dtype=torch.float32, norm_dtype=torch.float32,
+                 *, int8=False, int8_wide=False, gn_mode="dynamic", gn_steps=0):
         super().__init__()
         self.act = ACT[act_fn]
         self.dtype = dtype
-        self.norm1 = GroupNorm(groups, in_channels, eps, norm_dtype)
-        self.conv1 = Conv2d(in_channels, out_channels, 3, dtype)
+        self.norm1 = _gn(groups, in_channels, eps, norm_dtype, gn_mode, gn_steps)
+        self.conv1 = _conv(int8, in_channels, out_channels, 3, dtype)
         self.time_emb_proj = Linear(temb_channels, out_channels, dtype)
-        self.norm2 = GroupNorm(groups, out_channels, eps, norm_dtype)
-        self.conv2 = Conv2d(out_channels, out_channels, 3, dtype)
+        self.norm2 = _gn(groups, out_channels, eps, norm_dtype, gn_mode, gn_steps)
+        self.conv2 = _conv(int8, out_channels, out_channels, 3, dtype)
         if in_channels != out_channels:
-            self.conv_shortcut = Conv2d(in_channels, out_channels, 1, dtype, padding=0)
+            self.conv_shortcut = _conv(int8 if int8_wide else False, in_channels,
+                                       out_channels, 1, dtype, padding=0)
         else:
             self.conv_shortcut = None
 
-    def forward(self, x, temb):
-        h = self.act(self.norm1(x)).to(self.dtype)
+    def forward(self, x, temb, step_idx=None):
+        h = self.act(self.norm1(x, step_idx)).to(self.dtype)
         h = self.conv1(h)
         t = self.time_emb_proj(self.act(temb).to(self.dtype))
         h = h + t[:, :, None, None]
-        h = self.act(self.norm2(h)).to(self.dtype)
+        h = self.act(self.norm2(h, step_idx)).to(self.dtype)
         h = self.conv2(h)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
+
+
+def _softmax(logits):
+    """Softmax over the last axis in ``logits``' dtype. fp32: one
+    ``torch.softmax``. Narrower: the JAX package's rounding points as XLA
+    fuses ``jax.nn.softmax`` there: the difference from the row max and the
+    numerator's exp round to the dtype, the row sum adds the unrounded exp
+    in fp32 and rounds once, and the quotient stays fp32 (the caller's cast
+    rounds it)."""
+    if logits.dtype == torch.float32:
+        return torch.softmax(logits, dim=-1)
+    dt = logits.dtype
+    d = (logits - logits.amax(dim=-1, keepdim=True)).float()
+    e = torch.exp(d)
+    s = e.sum(dim=-1, keepdim=True).to(dt).float()
+    return e.to(dt).float() / s
 
 
 class AttentionBlock(nn.Module):
@@ -255,38 +313,39 @@ class AttentionBlock(nn.Module):
     softmax, product."""
 
     def __init__(self, channels, head_dim=8, groups=32, eps=1e-5, dtype=torch.float32,
-                 norm_dtype=torch.float32, softmax_dtype=torch.float32):
+                 norm_dtype=torch.float32, softmax_dtype=torch.float32, *,
+                 gn_mode="dynamic", gn_steps=0):
         super().__init__()
         self.heads = max(1, channels // head_dim)
         self.dtype = dtype
         self.softmax_dtype = softmax_dtype
-        self.group_norm = GroupNorm(groups, channels, eps, norm_dtype)
+        self.group_norm = _gn(groups, channels, eps, norm_dtype, gn_mode, gn_steps)
         self.to_q = Linear(channels, channels, dtype)
         self.to_k = Linear(channels, channels, dtype)
         self.to_v = Linear(channels, channels, dtype)
         self.to_out = nn.ModuleList([Linear(channels, channels, dtype)])
 
-    def forward(self, x):
+    def forward(self, x, step_idx=None):
         b, c, hh, ww = x.shape
         heads = self.heads
         dh = c // heads
         residual = x
-        h = self.group_norm(x).to(self.dtype).reshape(b, c, hh * ww).transpose(1, 2)
+        h = self.group_norm(x, step_idx).to(self.dtype).reshape(b, c, hh * ww).transpose(1, 2)
         q = self.to_q(h).reshape(b, -1, heads, dh)
         k = self.to_k(h).reshape(b, -1, heads, dh)
         v = self.to_v(h).reshape(b, -1, heads, dh)
         scale = 1.0 / math.sqrt(dh)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(self.softmax_dtype) * scale
-        attn = torch.softmax(logits, dim=-1).to(self.dtype)
+        attn = _softmax(logits).to(self.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, hh * ww, c)
         out = self.to_out[0](out)
         return out.transpose(1, 2).reshape(b, c, hh, ww) + residual
 
 
 class Downsample2D(nn.Module):
-    def __init__(self, channels, dtype=torch.float32):
+    def __init__(self, channels, dtype=torch.float32, int8=False):
         super().__init__()
-        self.conv = Conv2d(channels, channels, 3, dtype, stride=2)
+        self.conv = _conv(int8, channels, channels, 3, dtype, stride=2)
 
     def forward(self, x):
         return self.conv(x)
@@ -295,9 +354,9 @@ class Downsample2D(nn.Module):
 class Upsample2D(nn.Module):
     """Nearest 2x upsample, then a 3x3 conv."""
 
-    def __init__(self, channels, dtype=torch.float32):
+    def __init__(self, channels, dtype=torch.float32, int8=False):
         super().__init__()
-        self.conv = Conv2d(channels, channels, 3, dtype)
+        self.conv = _conv(int8, channels, channels, 3, dtype)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
@@ -305,13 +364,14 @@ class Upsample2D(nn.Module):
 
 def _resnet(cfg, cin, cout, temb_channels):
     return ResnetBlock2D(cin, cout, temb_channels, cfg.act_fn, cfg.norm_num_groups,
-                         cfg.norm_eps, cfg.compute_dtype, cfg.gn_dtype)
+                         cfg.norm_eps, cfg.compute_dtype, cfg.gn_dtype, int8=cfg.int8_arg,
+                         int8_wide=cfg.int8_wide, gn_mode=cfg.gn_mode, gn_steps=cfg.gn_steps)
 
 
 def _attention(cfg, channels):
     return AttentionBlock(channels, cfg.attention_head_dim, cfg.norm_num_groups,
                           cfg.norm_eps, cfg.compute_dtype, cfg.gn_dtype,
-                          cfg.softmax_dtype)
+                          cfg.softmax_dtype, gn_mode=cfg.gn_mode, gn_steps=cfg.gn_steps)
 
 
 class DownBlock2D(nn.Module):
@@ -326,18 +386,22 @@ class DownBlock2D(nn.Module):
             self.attentions = nn.ModuleList(
                 [_attention(cfg, out_channels) for _ in range(num_layers)])
         if add_downsample:
+            # fp even under conv_int8 unless int8_wide, as in the JAX package
             self.downsamplers = nn.ModuleList(
-                [Downsample2D(out_channels, cfg.compute_dtype)])
+                [Downsample2D(out_channels, cfg.compute_dtype, cfg.int8_wide_arg)])
 
-    def forward(self, x, temb):
+    def forward(self, x, temb, step_idx=None, downsample=True):
+        """``downsample=False`` leaves the downsampler out (the shallow
+        forward's innermost shell block, whose downsampled output only the
+        trunk reads)."""
         skips = []
         attentions = getattr(self, "attentions", None)
         for i, resnet in enumerate(self.resnets):
-            x = resnet(x, temb)
+            x = resnet(x, temb, step_idx)
             if attentions is not None:
-                x = attentions[i](x)
+                x = attentions[i](x, step_idx)
             skips.append(x)
-        if hasattr(self, "downsamplers"):
+        if downsample and hasattr(self, "downsamplers"):
             x = self.downsamplers[0](x)
             skips.append(x)
         return x, skips
@@ -355,16 +419,17 @@ class UpBlock2D(nn.Module):
             self.attentions = nn.ModuleList(
                 [_attention(cfg, out_channels) for _ in resnet_in_channels])
         if add_upsample:
-            self.upsamplers = nn.ModuleList([Upsample2D(out_channels, cfg.compute_dtype)])
+            self.upsamplers = nn.ModuleList(
+                [Upsample2D(out_channels, cfg.compute_dtype, cfg.int8_arg)])
 
-    def forward(self, x, skips, temb):
+    def forward(self, x, skips, temb, step_idx=None):
         attentions = getattr(self, "attentions", None)
         for i, resnet in enumerate(self.resnets):
             skip = skips.pop()
             x = torch.cat([x, skip.to(x.dtype)], dim=1)
-            x = resnet(x, temb)
+            x = resnet(x, temb, step_idx)
             if attentions is not None:
-                x = attentions[i](x)
+                x = attentions[i](x, step_idx)
         if hasattr(self, "upsamplers"):
             x = self.upsamplers[0](x)
         return x
@@ -378,11 +443,14 @@ class UNetMidBlock2D(nn.Module):
         if cfg.add_attention:
             self.attentions = nn.ModuleList([_attention(cfg, channels)])
 
-    def forward(self, x, temb):
-        x = self.resnets[0](x, temb)
+    def forward(self, x, temb, step_idx=None):
+        x = self.resnets[0](x, temb, step_idx)
         if hasattr(self, "attentions"):
-            x = self.attentions[0](x)
-        return self.resnets[1](x, temb)
+            x = self.attentions[0](x, step_idx)
+        return self.resnets[1](x, temb, step_idx)
+
+
+_QUANT_BUFFERS = ("act_amax", "gn_mean", "gn_var")
 
 
 class UNet2D(nn.Module):
@@ -390,6 +458,16 @@ class UNet2D(nn.Module):
 
     Parameters are created on ``device`` (``"meta"`` allocates nothing) in
     fp32; the output is in ``cfg.conv_out_dtype``.
+
+    Feature-reuse serving (``cfg.cache_depth``):
+      * ``return_deep=True`` also returns the trunk output: the input of the
+        outermost ``cache_depth`` up blocks (the output of up block
+        n - cache_depth - 1 with its upsampler), NCHW, compute dtype.
+      * ``deep_feature=<that tensor>`` runs only the outer shell: conv_in,
+        down blocks [0, cache_depth) for their skips, up blocks
+        [n - cache_depth, n) and conv_out, with ``deep_feature`` in place of
+        the trunk. With the deep feature of the same (x, t) this is the full
+        forward; a cached step passes the last full step's.
     """
 
     def __init__(self, cfg: UNet2DConfig, device=None):
@@ -401,7 +479,8 @@ class UNet2D(nn.Module):
         n = len(boc)
         temb_dim = boc[0] * 4
         with torch.device(device or "cpu"):
-            self.conv_in = Conv2d(cfg.in_channels, boc[0], 3, dt)
+            # fp even under conv_int8 unless int8_wide (3 input channels)
+            self.conv_in = _conv(cfg.int8_wide_arg, cfg.in_channels, boc[0], 3, dt)
             self.time_embedding = TimestepEmbedding(boc[0], temb_dim, dt)
             skip_ch = [boc[0]]
             ch = boc[0]
@@ -424,38 +503,92 @@ class UNet2D(nn.Module):
                     ins, c, temb_dim,
                     with_attn=cfg.up_block_types[i] == "AttnUpBlock2D",
                     add_upsample=i < n - 1, cfg=cfg))
-            self.conv_norm_out = GroupNorm(cfg.norm_num_groups, boc[0], cfg.norm_eps,
-                                           cfg.gn_dtype)
+            self.conv_norm_out = _gn(cfg.norm_num_groups, boc[0], cfg.norm_eps,
+                                     cfg.gn_dtype, cfg.gn_mode, cfg.gn_steps)
             self.conv_out = Conv2d(boc[0], cfg.out_channels, 3,
                                    getattr(torch, cfg.conv_out_dtype))
         self.act = ACT[cfg.act_fn]
 
     def cast_params_(self):
         """Store each conv/linear weight in the dtype it computes in (the
-        norms and ``conv_out`` stay as configured): the same rounding as the
-        per-call cast, done once. Returns self."""
+        norms and ``conv_out`` stay as configured; int8 convs and calibrated
+        norms keep fp32, which their scales and statistics are computed
+        from): the same rounding as the per-call cast, done once. Returns
+        self."""
         for m in self.modules():
             if isinstance(m, (Linear, Conv2d, GroupNorm)):
                 m.to(m.compute_dtype)
         return self
 
-    def forward(self, x, timesteps):
+    def quant_state(self):
+        """The calibrated constants, ``{"<module>.<buffer>": tensor}``: each
+        int8 site's ``act_amax`` and each calibrated norm's
+        ``gn_mean``/``gn_var`` tables (the buffers themselves)."""
+        return {f"{name}.{b}": getattr(m, b) for name, m in self.named_modules()
+                for b in _QUANT_BUFFERS if getattr(m, b, None) is not None}
+
+    def load_quant(self, quant):
+        """Set every calibrated constant from ``quant`` (as
+        :meth:`quant_state` names them; extra entries, such as the GN tables
+        a drift carry reads, are left alone). Raises on a missing one."""
+        with torch.no_grad():
+            for key, buf in self.quant_state().items():
+                if key not in quant:
+                    raise KeyError(f"no calibrated value for {key}")
+                buf.copy_(quant[key])
+        return self
+
+    def gnstats(self):
+        """The per-sample GroupNorm statistics the last ``gn_mode='record'``
+        forward kept: ``{"<module>.mu": (B, G), "<module>.rstd": (B, G)}``."""
+        return {f"{name}.{b}": getattr(m, b) for name, m in self.named_modules()
+                if isinstance(m, CalGroupNorm) and m.mode == "record" for b in ("mu", "rstd")}
+
+    def load_gnstats(self, stats):
+        """Hand a record forward's statistics to this ``gn_mode='reuse'``
+        model's norms."""
+        for name, m in self.named_modules():
+            if isinstance(m, CalGroupNorm) and m.mode == "reuse":
+                m.mu, m.rstd = stats[f"{name}.mu"], stats[f"{name}.rstd"]
+        return self
+
+    def forward(self, x, timesteps, step_idx=None, deep_feature=None, return_deep=False):
         cfg = self.cfg
         dt = cfg.compute_dtype
         timesteps = torch.as_tensor(timesteps, device=x.device)
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(x.shape[0])
+        if step_idx is None and cfg.gn_mode in ("calibrate", "static"):
+            # IADB's timestep is alpha = (t+1)/T: with linear alpha this is t
+            step_idx = gn_step_index(timesteps, cfg.gn_steps)
         temb = get_timestep_embedding(timesteps, cfg.block_out_channels[0],
                                       cfg.flip_sin_to_cos, cfg.freq_shift)
         temb = self.time_embedding(temb)
 
         h = self.conv_in(x.to(dt))
         skips = [h]
-        for block in self.down_blocks:
-            h, s = block(h, temb)
+        n = len(cfg.block_out_channels)
+        depth = cfg.cache_depth
+        shallow = deep_feature is not None
+        if shallow and return_deep:
+            raise ValueError("a shallow (cached) call cannot return_deep")
+        if (shallow or return_deep) and not (1 <= depth < n):
+            raise ValueError(f"cache_depth {depth} must be in [1, {n - 1}]")
+        for i in range(depth if shallow else n):
+            # shallow: block depth-1's downsampled output feeds only the trunk
+            ds = (i < depth - 1) if shallow else True
+            h, s = self.down_blocks[i](h, temb, step_idx, downsample=ds)
             skips.extend(s)
-        h = self.mid_block(h, temb)
-        for block in self.up_blocks:
-            h = block(h, skips, temb)
-        h = self.act(self.conv_norm_out(h)).to(dt)
-        return self.conv_out(h)
+        if shallow:
+            deep = None
+            h = deep_feature.to(dt)
+        else:
+            h = self.mid_block(h, temb, step_idx)
+            for block in self.up_blocks[:n - depth]:
+                h = block(h, skips, temb, step_idx)
+            deep = h  # the trunk output: input of the outer-shell up blocks
+        for block in self.up_blocks[n - depth:]:
+            h = block(h, skips, temb, step_idx)
+        h = self.act(self.conv_norm_out(h, step_idx)).to(dt)
+        out = self.conv_out(h)
+        return (out, deep) if return_deep else out

@@ -1,3 +1,6 @@
-from bndm_tpu_torch.samplers.iadb import iadb_step, sample_iadb
+from bndm_tpu_torch.samplers.iadb import (
+    IADBScheduler, iadb_step, sample_iadb, sample_iadb_cached, sample_iadb_microbatched,
+)
 
-__all__ = ["sample_iadb", "iadb_step"]
+__all__ = ["sample_iadb", "sample_iadb_cached", "sample_iadb_microbatched", "IADBScheduler",
+           "iadb_step"]

@@ -4,6 +4,7 @@
     python3 chip_smoke.py             # every phase below
     python3 chip_smoke.py --kernels   # phases 1-4 alone (K1-K3)
     python3 chip_smoke.py --probes    # phases 1, 2 and 5 alone (the probes)
+    python3 chip_smoke.py --tiers     # phases 1, 2 and 9b alone (the serving tiers)
 
 Drives the port's serving and training paths at full width with random
 seeded weights and holds every hand-written kernel against its plain
@@ -40,6 +41,15 @@ PyTorch version:
   9. unconditional serving: the CLI with the flags of
      scripts/sampling/cat_res64_test.sh (res 64, two-head 113.7M UNet, 250
      steps) on 2 batches of 16, the first traced by --profile_dir;
+ 9b. the serving tiers at full width (phase_serving_tiers): cache_interval=1
+     bit for bit the plain chain; the shallow forward against the full one
+     at every depth; the int8 product's int32 sums on the card against the
+     CPU's; the cat_res64 CLI with --conv_int8 --attn_softmax_dtype=bfloat16
+     --cache_interval 8 (plain, --gn_carry, --microbatch 8; and without
+     --conv_int8 before and after, to weigh int8 on this card) and the
+     super-res CLI with --conv_int8 --cache_interval 8 (K1 once per
+     request), samples/s of each; the validated ladder at probe batch 4;
+     one full and one shallow forward traced;
  10. training: the CLI with the flags of
      scripts/training/iadb_bn_cat_res64.sh (gaussianBN, two-head 113.7M
      UNet, batch 64) for 8 steps on 512 procedural images, then a resumed
@@ -288,6 +298,39 @@ def watched_sampler(record):
         yield
     finally:
         iadb.sample_iadb = real
+
+
+@contextlib.contextmanager
+def watched_samplers(record):
+    """Record (sampler name, shape, finiteness, seconds on the host clock,
+    synchronised) of every call of the three samplers the CLI may route to,
+    calibration's plain trajectories included (restores them on exit)."""
+    import torch
+
+    from bndm_tpu_torch.samplers import iadb
+
+    names = ("sample_iadb", "sample_iadb_cached", "sample_iadb_microbatched")
+    real = {n: getattr(iadb, n) for n in names}
+
+    def watch(name):
+        def watched(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            x = out[0] if name == "sample_iadb" else out
+            record.append((name, tuple(x.shape), bool(torch.isfinite(x).all()),
+                           time.perf_counter() - t0))
+            return out
+        return watched
+
+    for n in names:
+        setattr(iadb, n, watch(n))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(iadb, n, real[n])
 
 
 def device_kernels(prof):
@@ -811,6 +854,242 @@ def phase_uncond(torch, work, bn_dir):
             "samples_per_s": [s[0] / sec for s, _, sec in record], "params": n_params}
 
 
+CAT64 = ["--dataset=cat_res64", "--res=64", "--train_or_test=test", "--nb_steps=250",
+         "--noise_type=gaussianBN", "--scheduler_gamma=sigmoid", "--scheduler_param=1000",
+         "--out_channel=6"]  # scripts/sampling/cat_res64_test.sh:5
+
+
+def _tier_run(torch, argv, want_batches, bs):
+    """One CLI run through the serving tiers: every served batch finite and
+    of batch ``bs``; returns samples/s per served batch, the calibration's
+    seconds and the K1 launches."""
+    record = []
+    reset_launches()
+    with watched_samplers(record):
+        text = run_cli(argv)
+    k1 = read_launches()["tri_matmul"]
+    # every tier run here is cached: the plain sampler runs only to calibrate
+    served = [r for r in record if r[0] != "sample_iadb"]
+    cal = [r for r in record if r[0] == "sample_iadb"]
+    check(len(served) == want_batches and all(f and shape[0] == bs for _, shape, f, _ in served),
+          f"bad served samples: {served}")
+    check(("serving calibration:" in text) == bool(cal), "calibration ran unannounced")
+    return {"samples_per_s": [shape[0] / sec for _, shape, _, sec in served],
+            "sampler": sorted({r[0] for r in served}), "calibration_s": sum(r[3] for r in cal),
+            "k1": k1, "text": text}
+
+
+def phase_serving_tiers(torch, work, bn_dir):
+    """The serving tiers at full width (random seeded weights, 250 steps):
+
+    (a) cache_interval=1 gives the plain chain's bits (cuDNN deterministic);
+    (b) the shallow forward on the deep feature of the same (x, t) within
+        1e-5 of the full forward at every depth, fp32, TF32 off;
+    (c) the int8 product's int32 sums on the card equal the CPU's exactly
+        at 128 ch x 64^2 (batch 16) and 512 ch x 4^2 (batch 1, 16 rows);
+        the int8-static site timed beside the bf16 cuDNN conv;
+    (d) the cat_res64 CLI with --conv_int8 --attn_softmax_dtype=bfloat16
+        --cache_interval 8 on one batch of 16, again with --gn_carry, again
+        with --microbatch 8; the same flags without --conv_int8 run first
+        and last, so that int8's share of the stack's rate is measured;
+    (e) the church super-res CLI with --conv_int8 --cache_interval 8 on 2
+        images: K1 once per request;
+    (f) make_validated_serving_sampler at probe_batch 4: each tier's SSIM,
+        PSNR and gate; the chosen tier passed or is the plain path;
+    (g) one full and one shallow forward of (d)'s served model, traced.
+    """
+    import dataclasses
+
+    from bndm_tpu_torch.cli.common import output_folder_name
+    from bndm_tpu_torch.cli.iadb_bn import parse_args
+    from bndm_tpu_torch.data.imagefolder import make_procedural_folder
+    from bndm_tpu_torch.models.unet2d import UNet2D, unet_config_for_res
+    from bndm_tpu_torch.ops.int8 import int8_conv_accum, int8_conv_static
+    from bndm_tpu_torch.samplers.iadb import sample_iadb, sample_iadb_cached
+    from bndm_tpu_torch.serving import build_model, make_validated_serving_sampler
+
+    out = {}
+    sched = dict(scheduler_gamma="sigmoid", gamma_params=(1000.0, 0.0, 3.0), two_head=True)
+    torch.manual_seed(8)
+    cfg = unet_config_for_res(64, out_channels=6, dtype="bfloat16")
+    sd = UNet2D(cfg, device="cpu").state_dict()
+    g = torch.Generator().manual_seed(9)
+
+    # (a)
+    model = build_model(cfg, sd, "cuda")
+    x0 = torch.randn(4, 3, 64, 64, generator=g).cuda()
+    was = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        plain, _ = sample_iadb(model, x0, nb_steps=25, **sched)
+        cached = sample_iadb_cached(lambda x, t: model(x, t, return_deep=True),
+                                    lambda x, t, deep: model(x, t, deep_feature=deep), x0,
+                                    nb_steps=25, cache_interval=1, **sched)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = was
+    same = torch.equal(plain, cached)
+    log(f"tiers (a): cache_interval=1 against the plain chain, bf16 UNet, batch 4, 25 steps: "
+        f"{'the same bits' if same else 'DIFFERENT'}")
+    check(same and bool(torch.isfinite(plain).all()), "cache_interval=1 is not the plain chain")
+    del model
+
+    # (b)
+    fp32 = build_model(dataclasses.replace(cfg, dtype="float32"), sd, "cuda")
+    x = torch.randn(2, 3, 64, 64, generator=g).cuda()
+    t = torch.tensor([0.3, 0.9], device="cuda")
+    errs = []
+    with torch.no_grad():
+        for depth in range(1, len(cfg.block_out_channels)):
+            fp32.cfg = dataclasses.replace(fp32.cfg, cache_depth=depth)  # read at call time
+            full, deep = fp32(x, t, return_deep=True)
+            errs.append((fp32(x, t, deep_feature=deep) - full).abs().max().item())
+    log(f"tiers (b): shallow vs full forward, fp32, depths 1-{len(errs)}: max|err| "
+        f"{[f'{e:.2e}' for e in errs]} (limit 1e-5)")
+    check(max(errs) <= 1e-5, "the shallow forward disagrees with the full forward")
+    del fp32
+
+    # (c)
+    out["int8_sites"] = []
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB > L2
+    for c, hw, b in ((128, 64, 16), (512, 4, 1)):
+        xq = torch.randint(-127, 128, (b, c, hw, hw), generator=g, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (c, c, 3, 3), generator=g, dtype=torch.int8)
+        got = int8_conv_accum(xq.cuda(), wq.cuda()).cpu()
+        equal = torch.equal(got, int8_conv_accum(xq, wq))
+        xf = torch.randn(b, c, hw, hw, generator=g).cuda().to(torch.bfloat16)
+        w = torch.randn(c, c, 3, 3, generator=g).cuda() * 0.02
+        wb, bias = w.to(torch.bfloat16), torch.zeros(c, device="cuda", dtype=torch.bfloat16)
+        scale = xf.float().abs().amax() / 127.0
+        times = alternating({
+            "int8": lambda: int8_conv_static(xf, w, scale),
+            "bf16": lambda: torch.nn.functional.conv2d(xf, wb, bias, 1, 1)},
+            5, lambda fn: [time_ms(torch, fn, 10, flush)])
+        row = {"shape": f"{b}x{c}x{hw}x{hw}", "int32_equal": equal,
+               "max_abs_sum": int(got.abs().max()), "int8_static_ms": times["int8"],
+               "bf16_cudnn_ms": times["bf16"]}
+        out["int8_sites"].append(row)
+        log(f"tiers (c): int8 site {row['shape']}: int32 sums CUDA vs CPU "
+            f"{'equal' if equal else 'DIFFER'} (max |sum| {row['max_abs_sum']}); int8-static "
+            f"site {times['int8']:.4f} ms vs bf16 cuDNN conv {times['bf16']:.4f} ms")
+        check(equal, f"the int8 product's sums differ between the card and the CPU at {row}")
+    del flush
+
+    # (d)
+    argv = CAT64 + ["--batch_size=16", "--test_samples=16", "--save_all_samples",
+                    "--device=cuda", f"--bluenoise_dir={bn_dir}", "--conv_int8",
+                    "--attn_softmax_dtype=bfloat16", "--cache_interval=8"]
+    run = os.path.join(work, "tiers_uncond")
+    os.makedirs(run)
+    with contextlib.chdir(run):
+        write_ckpt(torch, unet_config_for_res(64, out_channels=6),
+                   os.path.join(output_folder_name(parse_args(argv)), "model.ckpt"), seed=5)
+        no_int8 = [a for a in argv if a != "--conv_int8"]
+        for name, flags in (("bf16sm+cached(i=8)", no_int8),
+                            ("int8+bf16sm+cached(i=8)", argv),
+                            ("int8+gncarry+bf16sm+cached(i=8)", argv + ["--gn_carry"]),
+                            ("int8+bf16sm+cached(i=8)+microbatch(8)", argv + ["--microbatch=8"]),
+                            ("bf16sm+cached(i=8), again", no_int8)):
+            r = _tier_run(torch, flags, 1, 16)
+            check(r["k1"] == 0, "K1 is not on the unconditional path")
+            check(re.search(r"gallery: 16 images written", r["text"]) is not None,
+                  "expected 16 images written")
+            out[name] = r
+            log(f"tiers (d): {name}: {r['samples_per_s'][0]:.2f} samples/s (batch 16, "
+                f"{r['sampler'][0]}); calibration {r['calibration_s']:.2f} s")
+
+    # (e)
+    argv = ["--dataset=church_res128", "--res=128", "--batch_size=200", "--train_or_test=test",
+            "--nb_steps=250", "--test_samples=100", "--is_conditional",
+            "--noise_type=gaussianBN", "--scheduler_gamma=sigmoid", "--scheduler_param=0.2",
+            "--out_channel=6", "--conditional_type=superres", "--device=cuda",
+            f"--data_root={work}/data_tiers", f"--bluenoise_dir={bn_dir}", "--conv_int8",
+            "--cache_interval=8"]  # scripts/sampling/iadb_church_superres_test.sh:5 + tiers
+    make_procedural_folder(os.path.join(work, "data_tiers", "church_res128_test"), n=2, res=128,
+                           seed=1)
+    ckpt = os.path.join(work, output_folder_name(parse_args(argv)), "model.ckpt")
+    if not os.path.exists(ckpt):  # phase 8 writes the same one
+        write_ckpt(torch, unet_config_for_res(128, in_channels=6, out_channels=6), ckpt, seed=4)
+    r = _tier_run(torch, argv, 2, 1)
+    m = re.search(r"ssim: (\S+), psnr: (\S+), l2: (\S+), l1: (\S+)", r["text"])
+    check(m is not None and all(math.isfinite(float(v.rstrip(","))) for v in m.groups()),
+          "super-res metrics missing or not finite")
+    check(r["k1"] == 2, f"K1 must launch once per super-res request, launched {r['k1']}")
+    out["superres int8+cached(i=8)"] = r
+    log(f"tiers (e): super-res int8+cached(i=8): samples/s per request "
+        f"{[round(v, 3) for v in r['samples_per_s']]}; K1 launches {r['k1']} for 2 requests; "
+        f"calibration {r['calibration_s']:.2f} s")
+
+    # (f)
+    t0 = time.perf_counter()
+    sample, report = make_validated_serving_sampler(
+        unet_config_for_res(64, out_channels=6, dtype="bfloat16"), sd, 250, 64,
+        device="cuda", probe_batch=4, **sched)
+    chosen = report[-1]["chosen"]
+    passed = {r["tier"] for r in report if r.get("gate") == "pass"}
+    log(f"tiers (f): validated ladder in {time.perf_counter() - t0:.1f} s: {report}")
+    check(chosen in passed or chosen == "bf16 parity path", f"the ladder chose {chosen}")
+    out["ladder"] = report
+    del sample
+
+    # (g)
+    out["trace"] = trace_cached_step(torch, sd)
+    return out
+
+
+def trace_cached_step(torch, sd):
+    """One full forward (returning the trunk) and one shallow forward of the
+    served int8-static + bf16-softmax res-64 model at batch 16 (cache_depth
+    1): host-clock time without the profiler, device busy time from
+    torch.profiler."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from bndm_tpu_torch.models.unet2d import unet_config_for_res
+    from bndm_tpu_torch.ops.int8 import calibrate_sampling
+    from bndm_tpu_torch.serving import build_model
+
+    base = unet_config_for_res(64, out_channels=6, dtype="bfloat16", conv_int8=True)
+    cal = build_model(dataclasses.replace(base, int8_mode="calibrate"), sd, "cuda")
+    served = build_model(dataclasses.replace(base, int8_mode="static",
+                                             attn_softmax_dtype="bfloat16"), sd, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(10)
+    served.load_quant(calibrate_sampling(
+        cal, torch.randn(4, 3, 64, 64, generator=g, device="cuda"), 10,
+        scheduler_gamma="sigmoid", gamma_params=(1000.0, 0.0, 3.0), two_head=True))
+    del cal
+    x = torch.randn(16, 3, 64, 64, generator=g, device="cuda")
+    t = torch.full((16,), 0.5, device="cuda")
+    out, n = {}, 5
+    with torch.no_grad():
+        _, deep = served(x, t, return_deep=True)
+        for name, fn in (("full", lambda: served(x, t, return_deep=True)),
+                         ("shallow", lambda: served(x, t, deep_feature=deep))):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) / n * 1e3
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+            kern = device_kernels(prof)
+            busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kern]) / n / 1e3 \
+                if kern else None
+            out[name] = {"host_ms": wall_ms, "busy_ms": busy, "kernels": len(kern) / n}
+            log(f"tiers (g): {name} forward, int8-static + bf16 softmax, bs 16: {wall_ms:.2f} ms "
+                f"(host clock), device busy "
+                f"{'not measured' if busy is None else f'{busy:.2f} ms ({100 * busy / wall_ms:.1f} %)'}"
+                f", {len(kern) / n:.0f} kernels")
+            if kern:
+                _log_top(kern, 3)
+    return out
+
+
 def phase_train(torch, work, bn_dir):
     """The training CLI at full width: 8 steps at batch 64, then a resumed
     ninth step, traced. Returns K2's launches and the step times."""
@@ -955,8 +1234,8 @@ def phase_trace(torch):
 
 
 def main(argv):
-    if argv not in ([], ["--kernels"], ["--probes"]):
-        log(f"FAIL: unknown arguments {argv} (the options are --kernels and --probes)")
+    if argv not in ([], ["--kernels"], ["--probes"], ["--tiers"]):
+        log(f"FAIL: unknown arguments {argv} (the options are --kernels, --probes and --tiers)")
         return 2
     only = argv[0] if argv else None
     if not os.path.isdir(os.path.join(HERE, "bndm_tpu_torch")):
@@ -1000,6 +1279,9 @@ def main(argv):
         t0 = time.time()
         L_blue = torch.from_numpy(load_L_for("gaussianBN", bn_dir)).cuda()
         log(f"blue-noise L generated and cached in {time.time() - t0:.1f}s")
+        if only == "--tiers":  # phase 9b alone: no kernel is timed
+            phase_serving_tiers(torch, work, bn_dir)
+            return finish(torch, kind, [], t_start)
         flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB > L2
 
         # 3-4. K1, K2 and K3
@@ -1021,6 +1303,15 @@ def main(argv):
         un = phase_uncond(torch, work, bn_dir)
         log(f"unconditional: samples/s per batch (sampler only, synchronised) "
             f"{un['samples_per_s']}")
+        torch.cuda.empty_cache()
+        # 9b. the serving tiers
+        t0 = time.time()
+        tiers = phase_serving_tiers(torch, work, bn_dir)
+        log(f"serving tiers: {time.time() - t0:.1f}s; samples/s (sampler only, synchronised): "
+            f"bf16 plain {un['samples_per_s'][-1]:.2f} (phase 9's second batch of 16), "
+            + ", ".join(f"{k} {v['samples_per_s']}" for k, v in tiers.items()
+                        if isinstance(v, dict) and "samples_per_s" in v))
+        torch.cuda.empty_cache()
         # 10. the training path
         tr = phase_train(torch, work, bn_dir)
         torch.cuda.empty_cache()
@@ -1028,6 +1319,7 @@ def main(argv):
         phase_trace(torch)
 
     kernels = k_kernels(k1, k2, (sr["launches"], tr["launches"], tr["k3_launches"]))
+    kernels[0]["launches_serving_tiers"] = tiers["superres int8+cached(i=8)"]["k1"]
     kernels += probe_kernels(probes)
     log(f"train: {tr['images_per_s']:.2f} images/s over steps 2-8, first step "
         f"{tr['first_step_s']:.3f} s (batch 64)")

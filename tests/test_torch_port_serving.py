@@ -244,10 +244,10 @@ def test_cli_superres_test_branch(cli_dirs, monkeypatch, capsys):
     assert capsys.readouterr().out.count("conditional metrics: ssim:") == 2
 
 
-@pytest.mark.parametrize("flag", ["--process_id=0", "--microbatch=2", "--cache_interval=2",
-                                  "--conv_int8", "--static_gn", "--gn_carry",
-                                  "--attn_softmax_dtype=bfloat16", "--num_processes=2"])
+@pytest.mark.parametrize("flag", ["--process_id=0", "--num_processes=2",
+                                  "--coordinator_address=localhost:1234"])
 def test_cli_flags_of_later_items_raise(flag):
+    """The multi-host flags (the serving flags run: test_torch_port_serving_tiers.py)."""
     from bndm_tpu_torch.cli.iadb_bn import main
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -177,10 +177,16 @@ def test_configs_match_jax_and_later_tiers_raise():
         j = dataclasses.asdict(J.unet_config_for_res(res, in_channels=6, out_channels=6))
         p = dataclasses.asdict(P.unet_config_for_res(res, in_channels=6, out_channels=6))
         assert p == j
-    for field, value in [("conv_int8", True), ("gn_mode", "static"), ("fast_upsample", True),
-                         ("cache_depth", 2), ("dropout", 0.1), ("int8_wide", True)]:
+    for field, value in [("fast_upsample", True), ("dropout", 0.1)]:
         with pytest.raises(NotImplementedError, match=field):
             P.UNet2D(dataclasses.replace(P.UNet2DConfig(**TINY), **{field: value}))
+    # the serving tiers' fields build, with the plain model's parameter names
+    plain = set(P.UNet2D(P.UNet2DConfig(**TINY)).state_dict())
+    for kw in [dict(conv_int8=True), dict(conv_int8=True, int8_wide=True),
+               dict(gn_mode="static", gn_steps=4), dict(gn_mode="record"),
+               dict(cache_depth=2)]:
+        assert set(P.UNet2D(dataclasses.replace(P.UNet2DConfig(**TINY), **kw)).state_dict()) \
+            == plain
 
 
 @pytest.mark.parametrize("legacy", [False, True])
