@@ -1,11 +1,15 @@
 """Checkpoint / resume of the full train state, keep-N, "latest" by default.
 
 Counterpart of ``bndm_tpu/ckpt/manager.py`` (which is built on Orbax) with
-the same interface, written with ``torch.save``. A checkpoint holds the
-complete :class:`~bndm_tpu_torch.train.pixel.TrainState`: model weights, both
-optimizers' state, the learnable schedule params and the step, in
-``<directory>/<step>/state.pt``. A save is written to a temporary file and
-renamed, so a directory seen by ``latest_step`` is whole. Saves are
+the same interface, written with ``torch.save``. A checkpoint holds a
+complete train state, whatever its kind: the manager saves
+``state.state_dict()`` and restores through ``state.load_state_dict()``
+(the pixel pipeline's :class:`~bndm_tpu_torch.train.pixel.TrainState`:
+weights, both optimizers, the learnable schedule params and the step; the
+HF pipelines' :class:`~bndm_tpu_torch.train.ddim.HFTrainState`: weights,
+AdamW with its accumulation buffers and schedule count, the EMA and the
+step), in ``<directory>/<step>/state.pt``. A save is written to a temporary
+file and renamed, so a directory seen by ``latest_step`` is whole. Saves are
 synchronous: ``wait`` and ``close`` have nothing to wait for.
 """
 
@@ -35,8 +39,9 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step, state, wait=False):
-        """Save ``state`` (a TrainState) as ``step``; ``wait`` is accepted for
-        the interface's sake, every save is synchronous."""
+        """Save ``state`` (anything with ``state_dict()``) as ``step``;
+        ``wait`` is accepted for the interface's sake, every save is
+        synchronous."""
         del wait
         step = int(step)
         if self.latest_step() == step or step % self.save_interval_steps:
@@ -44,13 +49,7 @@ class CheckpointManager:
         d = os.path.join(self.directory, str(step))
         os.makedirs(d, exist_ok=True)
         tmp = os.path.join(d, _FILE + ".tmp")
-        torch.save({
-            "model": state.model.state_dict(),
-            "opt": state.opt.state_dict(),
-            "sched_params": state.sched_params.detach().cpu(),
-            "sched_opt": state.sched_opt.state_dict(),
-            "step": int(state.step),
-        }, tmp)
+        torch.save(state.state_dict(), tmp)
         os.replace(tmp, os.path.join(d, _FILE))
         for old in self.all_steps()[:-self.max_to_keep]:
             shutil.rmtree(os.path.join(self.directory, str(old)))
@@ -64,14 +63,8 @@ class CheckpointManager:
             return None
         # onto the CPU: load_state_dict moves each tensor to its parameter's
         # device, and keeps the optimizers' step counts on the host
-        ck = torch.load(os.path.join(self.directory, str(int(step)), _FILE),
-                        map_location="cpu", weights_only=True)
-        state.model.load_state_dict(ck["model"], strict=True)
-        state.opt.load_state_dict(ck["opt"])
-        with torch.no_grad():
-            state.sched_params.copy_(ck["sched_params"])
-        state.sched_opt.load_state_dict(ck["sched_opt"])
-        state.step = int(ck["step"])
+        state.load_state_dict(torch.load(os.path.join(self.directory, str(int(step)), _FILE),
+                                         map_location="cpu", weights_only=True))
         return state
 
     def wait(self):

@@ -8,6 +8,7 @@ reproduced exactly, so the JAX CLI and this one share run folders.
 
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
@@ -138,6 +139,87 @@ def load_pixel_unet_params(out_dir):
         print(f"loading reference torch checkpoint: {ckpt}")
         return canonical_state_dict(load_torch_checkpoint(ckpt))
     raise FileNotFoundError(f"no model.npz or model.ckpt in {out_dir}")
+
+
+def load_tree_unet_params(out_dir):
+    """Weights for the diffusers-tree pipelines (DDIM, latent), as a torch
+    state_dict on the CPU: ``unet/model.npz`` first (the JAX package's
+    layout), else the ``save_pretrained`` tree (config.json +
+    diffusion_pytorch_model.safetensors/.bin), as
+    ``UNet2DModel.from_pretrained(output_dir + "/unet")``. Returns
+    (state_dict, UNet2DConfig | None): the config comes from
+    unet/config.json when present, so the published architecture wins over
+    the flags."""
+    from bndm_tpu_torch.models.convert import (load_pretrained_unet, state_dict_from_flax,
+                                               unet_config_from_diffusers)
+
+    unet_dir = os.path.join(out_dir, "unet")
+    cfg = None
+    cfg_path = os.path.join(unet_dir, "config.json")
+    if os.path.exists(cfg_path):
+        with open(cfg_path) as f:
+            cfg = unet_config_from_diffusers(json.load(f))
+    npz = os.path.join(unet_dir, "model.npz")
+    if os.path.exists(npz):
+        return state_dict_from_flax(load_params(npz)), cfg
+    print(f"loading diffusers save_pretrained tree: {unet_dir}")
+    sd, tree_cfg = load_pretrained_unet(unet_dir)
+    return sd, (tree_cfg or cfg)
+
+
+def hf_train_loop(args, state, train_step, epoch_batches, out_dir, save_eval, *, device,
+                  steps_per_epoch, loss_fmt):
+    """The train loop of the DDIM and latent CLIs, as the JAX CLIs run it:
+    ``--resume_from_checkpoint`` ("latest" or checkpoint-N) restores the
+    whole state and continues its step count (the epochs start again from
+    0); one ``train_step(state, batch, (seed, step))`` per batch of
+    ``epoch_batches(epoch)``; a checkpoint every ``--checkpointing_steps``
+    and at the end; the losses read back once per epoch and logged; ``save_eval(state)``, losses.txt and losses.png after every
+    ``--save_model_epochs``-th epoch and the last; ``--max_steps`` caps the
+    steps."""
+    from bndm_tpu_torch.ckpt.manager import CheckpointManager
+    from bndm_tpu_torch.utils.logging import MetricLogger, save_loss_curve
+
+    mgr = CheckpointManager(os.path.join(out_dir, "checkpoints"),
+                            max_to_keep=args.checkpoints_total_limit or 3)
+    step = 0
+    if args.resume_from_checkpoint:
+        want = None if args.resume_from_checkpoint == "latest" else int(
+            args.resume_from_checkpoint.split("-")[-1])
+        known = want is None or want in mgr.all_steps()
+        if known and mgr.restore(state, step=want) is not None:
+            step = state.step
+            print(f"Resuming from checkpoint step {step}")
+        else:
+            print(f"Checkpoint '{args.resume_from_checkpoint}' does not exist. "
+                  "Starting a new training run.")
+    logger = MetricLogger(os.path.join(out_dir, args.logging_dir))
+    losses = []
+    for epoch in range(args.num_epochs):
+        epoch_metrics = []
+        for batch in epoch_batches(epoch):
+            batch = torch.from_numpy(np.asarray(batch)).to(device, non_blocking=True)
+            epoch_metrics.append(train_step(state, batch, (args.seed, step))["loss"])
+            step += 1
+            if step % args.checkpointing_steps == 0:
+                mgr.save(step, state)
+            if args.max_steps and step >= args.max_steps:
+                break
+        fetched = torch.stack(epoch_metrics).cpu().numpy() if epoch_metrics else []
+        for off, loss in enumerate(fetched):
+            losses.append(float(loss))
+            logger.log({"loss": losses[-1]}, step - len(fetched) + off)
+        print(f"epoch {epoch}: mean loss {np.mean(losses[-steps_per_epoch:]):{loss_fmt}}")
+        if epoch % args.save_model_epochs == 0 or epoch == args.num_epochs - 1:
+            save_eval(state)
+            np.savetxt(os.path.join(out_dir, "losses.txt"), np.asarray(losses))
+            save_loss_curve(losses, os.path.join(out_dir, "losses.png"))
+        if args.max_steps and step >= args.max_steps:
+            break
+    mgr.save(step, state)
+    mgr.wait()
+    mgr.close()
+    logger.close()
 
 
 def _to_numpy(arr):

@@ -13,7 +13,9 @@ the attention softmax in ``attn_softmax_dtype``; ``conv_out`` in
 ``conv_out_dtype``. Module names are the diffusers state_dict names, so the
 weights of the JAX package (through :mod:`bndm_tpu_torch.models.convert`) and
 the reference's torch checkpoints load with ``strict=True``. Layout is NCHW
-throughout.
+throughout. ``dropout`` drops inside each resnet in train mode only;
+``fast_upsample`` is accepted for the JAX config's sake: its subpixel form
+is the same function as the plain nearest-2x + 3x3 conv, computed so.
 
 Serving tiers (the JAX package's ``UNet2D`` fields of the same names):
 ``conv_int8``/``int8_mode``/``int8_wide`` swap conv sites for
@@ -50,14 +52,6 @@ ACT = {
     "gelu": lambda x: F.gelu(x, approximate="tanh"),  # flax nn.gelu's default
     "mish": _mish,
     "relu": F.relu,
-}
-
-# fields of later tiers: they exist so configurations carry over, and a
-# non-default value raises until its ROADMAP item lands
-_LATER = {
-    "fast_upsample": (False, "the latent pipeline's subpixel upsample "
-                             "(ROADMAP queue 1, item 11)"),
-    "dropout": (0.0, "the DDIM training path (ROADMAP queue 1, item 10)"),
 }
 
 
@@ -119,13 +113,6 @@ class UNet2DConfig:
     @property
     def softmax_dtype(self):
         return getattr(torch, self.attn_softmax_dtype)
-
-    def check_supported(self):
-        for name, (default, item) in _LATER.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"UNet2DConfig.{name}={getattr(self, name)!r} needs {item}, "
-                    "which the PyTorch port does not have yet")
 
 
 def unet_config_for_res(res, in_channels=3, out_channels=3, act_fn="silu", dtype="float32",
@@ -259,18 +246,22 @@ class TimestepEmbedding(nn.Module):
 
 class ResnetBlock2D(nn.Module):
     """``int8``: the int8 mode of conv1/conv2 (False: fp); the shortcut
-    takes it too only under ``int8_wide``."""
+    takes it too only under ``int8_wide``. ``temb_channels=None``: no time
+    conditioning (the VAE's resnets). ``dropout`` > 0 drops after the
+    second norm in train mode only."""
 
     def __init__(self, in_channels, out_channels, temb_channels, act_fn="silu",
                  groups=32, eps=1e-5, dtype=torch.float32, norm_dtype=torch.float32,
-                 *, int8=False, int8_wide=False, gn_mode="dynamic", gn_steps=0):
+                 *, int8=False, int8_wide=False, gn_mode="dynamic", gn_steps=0, dropout=0.0):
         super().__init__()
         self.act = ACT[act_fn]
         self.dtype = dtype
         self.norm1 = _gn(groups, in_channels, eps, norm_dtype, gn_mode, gn_steps)
         self.conv1 = _conv(int8, in_channels, out_channels, 3, dtype)
-        self.time_emb_proj = Linear(temb_channels, out_channels, dtype)
+        if temb_channels is not None:
+            self.time_emb_proj = Linear(temb_channels, out_channels, dtype)
         self.norm2 = _gn(groups, out_channels, eps, norm_dtype, gn_mode, gn_steps)
+        self.dropout = nn.Dropout(dropout) if dropout > 0 else None
         self.conv2 = _conv(int8, out_channels, out_channels, 3, dtype)
         if in_channels != out_channels:
             self.conv_shortcut = _conv(int8 if int8_wide else False, in_channels,
@@ -281,9 +272,12 @@ class ResnetBlock2D(nn.Module):
     def forward(self, x, temb, step_idx=None):
         h = self.act(self.norm1(x, step_idx)).to(self.dtype)
         h = self.conv1(h)
-        t = self.time_emb_proj(self.act(temb).to(self.dtype))
-        h = h + t[:, :, None, None]
+        if temb is not None:
+            t = self.time_emb_proj(self.act(temb).to(self.dtype))
+            h = h + t[:, :, None, None]
         h = self.act(self.norm2(h, step_idx)).to(self.dtype)
+        if self.dropout is not None:
+            h = self.dropout(h)
         h = self.conv2(h)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
@@ -352,7 +346,9 @@ class Downsample2D(nn.Module):
 
 
 class Upsample2D(nn.Module):
-    """Nearest 2x upsample, then a 3x3 conv."""
+    """Nearest 2x upsample, then a 3x3 conv. The JAX package's subpixel form
+    (its ``fast_upsample``, and the VAE's upsample) is the same function:
+    here both are computed this way."""
 
     def __init__(self, channels, dtype=torch.float32, int8=False):
         super().__init__()
@@ -365,7 +361,8 @@ class Upsample2D(nn.Module):
 def _resnet(cfg, cin, cout, temb_channels):
     return ResnetBlock2D(cin, cout, temb_channels, cfg.act_fn, cfg.norm_num_groups,
                          cfg.norm_eps, cfg.compute_dtype, cfg.gn_dtype, int8=cfg.int8_arg,
-                         int8_wide=cfg.int8_wide, gn_mode=cfg.gn_mode, gn_steps=cfg.gn_steps)
+                         int8_wide=cfg.int8_wide, gn_mode=cfg.gn_mode, gn_steps=cfg.gn_steps,
+                         dropout=cfg.dropout)
 
 
 def _attention(cfg, channels):
@@ -472,7 +469,6 @@ class UNet2D(nn.Module):
 
     def __init__(self, cfg: UNet2DConfig, device=None):
         super().__init__()
-        cfg.check_supported()
         self.cfg = cfg
         dt = cfg.compute_dtype
         boc = cfg.block_out_channels

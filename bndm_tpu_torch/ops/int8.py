@@ -1,12 +1,12 @@
 """int8 (W8A8) convolution for the sampling path.
 
-Counterpart of ``bndm_tpu/ops/int8.py`` (without ``calibrate_sampling_ddim``,
-which comes with the DDIM pipeline). Symmetric quantization:
+Counterpart of ``bndm_tpu/ops/int8.py``. Symmetric quantization:
 
   * weights:     per-output-channel scale ``s_w[o] = max|W[o]| / 127``
   * activations: a per-sample scale ``s_x = max|x| / 127`` computed on each
     call (dynamic), or one constant scale recorded by an exact fp32
-    trajectory (``calibrate_sampling``, static)
+    trajectory (``calibrate_sampling`` on an IADB trajectory,
+    ``calibrate_sampling_ddim`` on a DDIM one; static)
   * ``y = conv(x_q, w_q)`` accumulated in int32, dequantized by
     ``s_x * s_w[o]``, bias added in fp32, cast to the compute dtype.
 
@@ -222,4 +222,21 @@ def calibrate_sampling(model, x0, nb_steps, *, scheduler_alpha="linear", alpha_p
     sample_iadb(model, x0, nb_steps=nb_steps, scheduler_alpha=scheduler_alpha,
                 alpha_param=alpha_param, scheduler_gamma=scheduler_gamma,
                 gamma_params=gamma_params, two_head=two_head, x_c=x_c)
+    return {k: v.clone() for k, v in model.quant_state().items()}
+
+
+@torch.no_grad()
+def calibrate_sampling_ddim(model, x0, scheduler, num_inference_steps):
+    """The DDIM-trajectory variant of :func:`calibrate_sampling`: one exact
+    (fp32-conv) DDIM reverse loop through the calibrate-mode ``model``
+    records each int8 site's running activation amax and, with
+    ``gn_mode='calibrate'``, the per-(site, step) GroupNorm statistics keyed
+    on the scan position (``sample_ddim(..., pass_step_idx=True)``). Returns
+    the constants (``model.quant_state()``, cloned)."""
+    from bndm_tpu_torch.samplers.ddim import sample_ddim
+
+    for buf in model.quant_state().values():
+        buf.zero_()
+    sample_ddim(model, x0, scheduler=scheduler, num_inference_steps=num_inference_steps,
+                pass_step_idx=True)
     return {k: v.clone() for k, v in model.quant_state().items()}

@@ -1,9 +1,7 @@
 """Serving API: the sampling tiers of the IADB sampler in one call.
 
-Counterpart of ``bndm_tpu/serving.py`` (the DDIM factory
-``make_serving_sampler_ddim`` comes with the DDIM pipeline). The tiers, each
-a relaxation of the exact bf16 chain that must be gated on the weights it
-serves:
+Counterpart of ``bndm_tpu/serving.py``. The tiers, each a relaxation of the
+exact bf16 chain that must be gated on the weights it serves:
 
   int8-static   conv sites in W8A8 with activation scales calibrated on one
                 exact trajectory (ops/int8.py)
@@ -20,7 +18,8 @@ serves:
 
 ``make_serving_sampler`` builds the calibration and serving models,
 calibrates lazily on the first ``sample()`` and routes to the plain, cached
-or microbatched sampler. ``make_validated_serving_sampler`` probes the
+or microbatched sampler; ``make_serving_sampler_ddim`` does the same for
+the DDIM baseline. ``make_validated_serving_sampler`` probes the
 ladder of tier stacks, fastest first, and serves the first that passes
 SSIM >= 0.99 and PSNR >= 35 dB against the plain path on the same x0.
 
@@ -32,13 +31,14 @@ caller asks for the CPU); calibration draws from an explicit
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import torch
 
 from bndm_tpu_torch.models.unet2d import UNet2D
-from bndm_tpu_torch.ops.int8 import calibrate_sampling
-from bndm_tpu_torch.ops.static_norm import drift_correct_gnstats, gn_step_index
+from bndm_tpu_torch.ops.int8 import calibrate_sampling, calibrate_sampling_ddim
+from bndm_tpu_torch.ops.static_norm import drift_correct_gnstats, gn_step_index, smooth_gn_tables
 from bndm_tpu_torch.samplers.iadb import (sample_iadb, sample_iadb_cached,
                                           sample_iadb_microbatched)
 
@@ -228,6 +228,92 @@ def make_serving_sampler(
                                       x_c=x_c, **sched)
         return sample_iadb(model, x0, x_c=x_c, **sched)[0]
 
+    return sample
+
+
+def make_serving_sampler_ddim(
+    cfg,
+    state_dict,
+    scheduler,
+    num_inference_steps,
+    *,
+    device="cuda",
+    conv_int8: bool = True,
+    int8_mode: str = "static",
+    static_gn: bool = False,
+    calib_batch: int = 8,
+    generator: Optional[torch.Generator] = None,
+    attn_softmax_dtype: Optional[str] = None,
+    relax_kw: Optional[dict] = None,
+    cache_interval: Optional[int] = None,
+    gn_smooth_window: Optional[int] = None,
+    verbose: bool = False,
+):
+    """The DDIM baseline's counterpart of :func:`make_serving_sampler`:
+    calibrate once on a DDIM trajectory (``calibrate_sampling_ddim``), then
+    serve. The static-GN tables are keyed on the sampler's scan position
+    (DDIM's integer timesteps carry no index), so sampling runs with
+    ``pass_step_idx``. ``static_gn`` is off by default here, as in the JAX
+    package, whose DDIM static-GN tier failed its fidelity gate.
+    ``conv_int8`` with ``int8_mode`` "static" calibrates the activation
+    scales; "dynamic" serves dynamic int8. ``relax_kw``: serving-only
+    config relaxations (``cli/common.py::serving_relax_kw``);
+    ``attn_softmax_dtype`` is one of them. ``cache_interval`` (> 1): the
+    feature-reuse chain (``sample_ddim_cached``; calibration runs the full
+    model). ``gn_smooth_window``: with ``static_gn``, smooth the calibrated
+    tables along the step axis (``smooth_gn_tables``). Calibration draws
+    ``min(calib_batch, B)`` normal samples from ``generator`` (seeded 0 on
+    ``device`` by default) at the first call, or at ``sample.calibrate(shape)``
+    before it; ``verbose`` prints its seconds. Returns
+    ``sample(x0, collect_frames=False) -> x``, or ``(x, frames)`` with
+    ``collect_frames`` (None under the cached chain, which keeps none)."""
+    from bndm_tpu_torch.samplers.ddim import sample_ddim, sample_ddim_cached
+
+    device = torch.device(device)
+    relax = dict(relax_kw or {})
+    if attn_softmax_dtype is not None:
+        relax["attn_softmax_dtype"] = attn_softmax_dtype
+    m_cal, model = serving_model_pair(
+        cfg, state_dict, device=device, conv_int8=True if conv_int8 else None,
+        int8_static=conv_int8 and int8_mode == "static", static_gn=static_gn,
+        gn_steps=num_inference_steps, relax_kw=relax or None)
+    caching = cache_interval is not None and cache_interval > 1
+
+    def calibrate(shape):
+        """Run the pending calibration for batches of ``shape``, if any."""
+        nonlocal m_cal
+        if m_cal is None:
+            return
+        t0 = time.time()
+        gen = generator if generator is not None else \
+            torch.Generator(device=device).manual_seed(0)
+        x_cal = torch.randn((min(calib_batch, shape[0]),) + tuple(shape[1:]),
+                            generator=gen, device=device, dtype=torch.float32)
+        quant = calibrate_sampling_ddim(m_cal, x_cal, scheduler, num_inference_steps)
+        if static_gn and gn_smooth_window:
+            quant = smooth_gn_tables(quant, gn_smooth_window)
+        model.load_quant(quant)
+        m_cal = None  # its weights are not needed again
+        if verbose:
+            print(f"serving calibration: {time.time() - t0:.1f}s ({len(quant)} calibrated sites)")
+
+    def sample(x0, collect_frames=False):
+        """Denoise x0 (N, C, H, W) with the DDIM serving configuration."""
+        calibrate(x0.shape)
+        if caching:
+            out = sample_ddim_cached(
+                lambda x, t, step_idx=None: model(x, t, step_idx=step_idx, return_deep=True),
+                lambda x, t, deep, step_idx=None: model(x, t, step_idx=step_idx,
+                                                        deep_feature=deep),
+                x0, scheduler=scheduler, num_inference_steps=num_inference_steps,
+                cache_interval=cache_interval, pass_step_idx=static_gn)
+            return (out, None) if collect_frames else out
+        out, frames = sample_ddim(model, x0, scheduler=scheduler,
+                                  num_inference_steps=num_inference_steps,
+                                  collect_frames=collect_frames, pass_step_idx=static_gn)
+        return (out, frames) if collect_frames else out
+
+    sample.calibrate = calibrate
     return sample
 
 

@@ -1,7 +1,6 @@
 """Training objectives and batch tricks of the BNDM pipelines.
 
-Counterpart of ``bndm_tpu/train/losses.py`` (all of it but ``ddim_loss``,
-which comes with the DDIM baseline, ROADMAP.md queue 1 item 10):
+Counterpart of ``bndm_tpu/train/losses.py``:
 
   forward blend   x_alpha = alpha * x0 + (1 - alpha) * x1   (x1 = data, x0 = noise)
   antithetic t    t ~ U{1..T} for ceil(bs/2), then concat(t, T - t + 1)[:bs]
@@ -11,9 +10,10 @@ which comes with the DDIM baseline, ROADMAP.md queue 1 item 10):
                   loss = sum|d1-tar1|^2 + sum|d2-tar2|^2 * (dgamma_t/dalpha_t)
   remap           greedy nearest-neighbour reassignment of data to noise
                   within the batch
+  DDIM baseline   epsilon MSE, or the SNR-weighted sample loss (means)
 
-All losses are sums (not means), matching the reference's magnitudes. Random
-draws take an explicit ``torch.Generator``.
+The IADB/BNDM losses are sums (not means), matching the reference's
+magnitudes. Random draws take an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -63,6 +63,18 @@ def bndm_loss(d, x1, x0, noise_bn, noise_wn, alpha, alpha_prev, gamma, gamma_pre
     # the reference multiplies loss1 by dalpha/dalpha ("weight is simply 1")
     # and loss2 by dgamma/dalpha
     return torch.sum(loss1) + torch.sum(loss2 * delta_gamma / delta_alpha)
+
+
+def ddim_loss(model_output, noise, clean, timesteps, alphas_cumprod, prediction_type="epsilon"):
+    """The DDIM baseline's losses: epsilon MSE or the SNR-weighted sample
+    loss (``alphas_cumprod`` on the timesteps' device)."""
+    if prediction_type == "epsilon":
+        return torch.mean((model_output - noise) ** 2)
+    if prediction_type == "sample":
+        acp = _bc(alphas_cumprod[timesteps])
+        snr = acp / (1.0 - acp)
+        return torch.mean(snr * (model_output - clean) ** 2)
+    raise NotImplementedError(prediction_type)
 
 
 @torch.no_grad()

@@ -74,6 +74,19 @@ class TrainState:
     sched_opt: torch.optim.Optimizer
     step: int = 0
 
+    def state_dict(self):
+        return {"model": self.model.state_dict(), "opt": self.opt.state_dict(),
+                "sched_params": self.sched_params.detach().cpu(),
+                "sched_opt": self.sched_opt.state_dict(), "step": int(self.step)}
+
+    def load_state_dict(self, sd):
+        self.model.load_state_dict(sd["model"], strict=True)
+        self.opt.load_state_dict(sd["opt"])
+        with torch.no_grad():
+            self.sched_params.copy_(sd["sched_params"])
+        self.sched_opt.load_state_dict(sd["sched_opt"])
+        self.step = int(sd["step"])
+
 
 def _make_optimizer(cfg: TrainConfig, params):
     """optax.adam / optax.adamw(lr) (the gradient clip, if any, is applied by
@@ -105,6 +118,21 @@ def init_sched_params(generator, cfg: TrainConfig, device=None):
     hi = torch.tensor([r[1] for r in ranges], dtype=torch.float32)
     u = torch.rand(3, generator=generator)
     return (lo + (hi - lo) * u).to(device)
+
+
+def draw_noise(x, key, noise_type, engine):
+    """A train step's fresh noise draw for data ``x``, from ``key``: K2's
+    two host-int seeds (a tuple) where :func:`takes_fused` says the fused
+    path runs, else the white noise of :func:`fresh_shape` on x's device
+    (uniform for ``uniform``). ``get_noise`` takes either as ``seeds=`` or
+    ``white=``."""
+    if takes_fused(x, noise_type, False, engine):
+        return draw_seeds(make_generator("cpu", *key, 1))
+    shape = fresh_shape(x.shape, noise_type)
+    gen = make_generator(x.device, *key, 2)
+    if noise_type == "uniform":
+        return torch.rand(shape, generator=gen, device=x.device)
+    return torch.randn(shape, generator=gen, device=x.device)
 
 
 def make_train_step(cfg: TrainConfig, L):
@@ -151,21 +179,11 @@ def make_train_step(cfg: TrainConfig, L):
                              alpha, alpha_prev, gamma, gamma_prev, cfg.two_head)
         return iadb_loss(d, x1_paired, x0)
 
-    def draw_noise(x1, key):
-        """The step's noise draw (see ``loss_fn``), from ``key``."""
-        if takes_fused(x1, cfg.noise_type, False, cfg.noise_engine):
-            return draw_seeds(make_generator("cpu", *key, 1))
-        shape = fresh_shape(x1.shape, cfg.noise_type)
-        gen = make_generator(x1.device, *key, 2)
-        if cfg.noise_type == "uniform":
-            return torch.rand(shape, generator=gen, device=x1.device)
-        return torch.randn(shape, generator=gen, device=x1.device)
-
     def train_step(state: TrainState, batch01, key):
         x1 = batch01.to(L.device, torch.float32) * 2.0 - 1.0
         t = antithetic_timesteps(make_generator("cpu", *key), x1.shape[0], cfg.nb_steps)
         t = t.to(L.device, torch.float32)
-        noise = draw_noise(x1, key)
+        noise = draw_noise(x1, key, cfg.noise_type, cfg.noise_engine)
         state.opt.zero_grad(set_to_none=True)
         state.sched_opt.zero_grad(set_to_none=True)
         loss = loss_fn(state.model, state.sched_params, x1, t, noise)

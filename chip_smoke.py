@@ -5,6 +5,8 @@
     python3 chip_smoke.py --kernels   # phases 1-4 alone (K1-K3)
     python3 chip_smoke.py --probes    # phases 1, 2 and 5 alone (the probes)
     python3 chip_smoke.py --tiers     # phases 1, 2 and 9b alone (the serving tiers)
+    python3 chip_smoke.py --pipelines # phases 1, 2 and 12-14 alone (DDIM, latent)
+    python3 chip_smoke.py --train     # phases 1, 2 and 10 alone (pixel training)
 
 Drives the port's serving and training paths at full width with random
 seeded weights and holds every hand-written kernel against its plain
@@ -16,7 +18,8 @@ PyTorch version:
      1-1500 on the TPU kernel test's L (tril(0.02 N(0,1)), unit diagonal)
      and on the generated blue-noise L, the same bits from a second call;
      both of its designs timed at each M (the crossover); then K1 against
-     torch.matmul in alternating turns at M = 12, 48, 96, 768 and 1500,
+     torch.matmul in alternating turns at M = 12, 48, 96, 768, 1024 (the
+     latent res-256 train step) and 1500,
      beside its plain version and the bound, its share of the fp32 FMA
      bound and of the 3xTF32 tensor-core bound;
   4. K2 (fused_bluenoise_flat) against its plain version and fp64 at
@@ -52,12 +55,32 @@ PyTorch version:
      one full and one shallow forward traced;
  10. training: the CLI with the flags of
      scripts/training/iadb_bn_cat_res64.sh (gaussianBN, two-head 113.7M
-     UNet, batch 64) for 8 steps on 512 procedural images, then a resumed
-     ninth step; K2 and K3 must run once per step and K1 not at all; one
-     step traced (torch.profiler);
- 11. trace: one bf16 UNet forward of each served branch at its shape, its
+     UNet, batch 64) for 8 steps on 512 procedural images, then 12 steady
+     steps (the last batch again, with no loader thread decoding beside
+     them), then a resumed ninth step; K2 and K3 must run once per CLI
+     step and K1 not at all; one step traced (torch.profiler);
+ 11. trace: one bf16 UNet forward of each served branch at its shape (the
+     DDIM and latent ones too) and one bf16 VAE decode of 16 latents, its
      host-clock time beside the device's busy time and top kernels;
- 12. one JSON line {"kernels": [...]}, then the last line
+ 12. the DDIM baseline (phase_ddim), the flags of
+     scripts/sampling/cat_res64_test.sh:7 (res 64, the 113.7M 3->3 UNet,
+     1000 train T, 250 leading steps, clip_sample): the CLI trains 8 steps
+     at batch 64 with --use_ema on 512 procedural images, 12 steady steps
+     as in phase 10, and one resumed step (traced), samples 2 batches of 16 with frames, then --conv_int8
+     --cache_interval 8; one fp32 DDIM step on the card against the CPU;
+     no hand kernel on the path;
+ 13. the latent pipeline at res 256 (phase_latent), the flags of
+     scripts/training/latent_iadb_celeba_res256.sh:3 (latent32 UNet, out
+     4 x 2 two-head, batch 256) with the SD-VAE config at random init: the
+     cache from 128 procedural images, 10 train steps (the last traced), K1
+     once per step at M = 1024; one batch of 16 sampled and decoded with
+     --decode_microbatch 16; the fp32 VAE decode on the card against the
+     CPU;
+ 14. the latent pipeline at res 512, reduced (phase_latent512,
+     scripts/training/latent_iadb_cat_res512.sh:6 at batch 64, not 256): 6
+     train steps on 32 procedural images (the last traced), K2 once per
+     step;
+ 15. one JSON line {"kernels": [...]}, then the last line
      {"ok": true, "device": {...}}.
 
 Every path is driven with the kernels' launch counts set to 0 just before
@@ -301,16 +324,18 @@ def watched_sampler(record):
 
 
 @contextlib.contextmanager
-def watched_samplers(record):
+def watched_samplers(record, module=None,
+                     names=("sample_iadb", "sample_iadb_cached", "sample_iadb_microbatched")):
     """Record (sampler name, shape, finiteness, seconds on the host clock,
-    synchronised) of every call of the three samplers the CLI may route to,
-    calibration's plain trajectories included (restores them on exit)."""
+    synchronised) of every call of the samplers ``names`` of ``module``
+    (the IADB samplers by default) the CLI may route to, calibration's
+    plain trajectories included (restores them on exit)."""
     import torch
 
     from bndm_tpu_torch.samplers import iadb
 
-    names = ("sample_iadb", "sample_iadb_cached", "sample_iadb_microbatched")
-    real = {n: getattr(iadb, n) for n in names}
+    module = module or iadb
+    real = {n: getattr(module, n) for n in names}
 
     def watch(name):
         def watched(*args, **kwargs):
@@ -318,19 +343,62 @@ def watched_samplers(record):
             t0 = time.perf_counter()
             out = real[name](*args, **kwargs)
             torch.cuda.synchronize()
-            x = out[0] if name == "sample_iadb" else out
+            x = out[0] if isinstance(out, tuple) else out
             record.append((name, tuple(x.shape), bool(torch.isfinite(x).all()),
                            time.perf_counter() - t0))
             return out
         return watched
 
     for n in names:
-        setattr(iadb, n, watch(n))
+        setattr(module, n, watch(n))
     try:
         yield
     finally:
         for n in names:
-            setattr(iadb, n, real[n])
+            setattr(module, n, real[n])
+
+
+@contextlib.contextmanager
+def watched_steps(record, module, factory, traced=None, trace_step=None, last=None):
+    """Record the seconds (host clock, synchronised), the model's parameter
+    count and the main thread's CPU seconds of every step of the train step
+    that ``module.factory`` (``make_ddim_train_step``,
+    ``make_latent_train_step``) builds while this is open. The step
+    numbered ``trace_step`` (0 = the first of the run) runs under
+    torch.profiler instead, its CUDA kernel events appended to ``traced``.
+    ``last`` (a dict): its "again" repeats the last untraced step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    real = getattr(module, factory)
+
+    def make(*args, **kwargs):
+        step, init = real(*args, **kwargs)
+
+        def watched(state, batch, key):
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), time.thread_time()
+            if traced is not None and len(record) == trace_step:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    metrics = step(state, batch, key)
+                    torch.cuda.synchronize()
+                traced.extend(device_kernels(prof))
+            else:
+                metrics = step(state, batch, key)
+                torch.cuda.synchronize()
+                if last is not None:
+                    last["again"] = lambda: step(state, batch, key)
+            record.append((time.perf_counter() - t0,
+                           sum(p.numel() for p in state.model.parameters()),
+                           time.thread_time() - c0))
+            return metrics
+        return watched, init
+
+    setattr(module, factory, make)
+    try:
+        yield
+    finally:
+        setattr(module, factory, real)
 
 
 def device_kernels(prof):
@@ -344,11 +412,12 @@ def device_kernels(prof):
 
 
 @contextlib.contextmanager
-def watched_trainer(record, traced=None):
-    """Record the seconds (host clock, synchronised) and the model's
-    parameter count of every train step the CLI takes. With ``traced`` (a
-    list), each step runs under torch.profiler instead and its CUDA kernel
-    events are appended there."""
+def watched_trainer(record, traced=None, last=None):
+    """Record the seconds (host clock, synchronised), the model's parameter
+    count and the main thread's CPU seconds of every train step the CLI
+    takes. With ``traced`` (a list), each step runs under torch.profiler
+    instead and its CUDA kernel events are appended there. ``last`` (a
+    dict): its "again" repeats the last untraced step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -358,17 +427,20 @@ def watched_trainer(record, traced=None):
 
     def watched(self, batch01, key):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0, c0 = time.perf_counter(), time.thread_time()
         if traced is None:
             metrics = real(self, batch01, key)
             torch.cuda.synchronize()
+            if last is not None:
+                last["again"] = lambda: real(self, batch01, key)
         else:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 metrics = real(self, batch01, key)
                 torch.cuda.synchronize()
             traced.extend(device_kernels(prof))
         record.append((time.perf_counter() - t0,
-                       sum(p.numel() for p in self.model.parameters())))
+                       sum(p.numel() for p in self.model.parameters()),
+                       time.thread_time() - c0))
         return metrics
 
     pixel.PixelTrainer.step = watched
@@ -390,17 +462,20 @@ def write_ckpt(torch, cfg, path, seed):
     return n_params
 
 
-def run_cli(argv):
-    from bndm_tpu_torch.cli.iadb_bn import main
+def run_cli(argv, cli="iadb_bn"):
+    """Run ``bndm_tpu_torch.cli.<cli>.main(argv)``; returns what it printed."""
+    import importlib
 
+    main = importlib.import_module(f"bndm_tpu_torch.cli.{cli}").main
     tee = Tee(sys.stdout)
     with contextlib.redirect_stdout(tee):
         main(argv)
     return tee.buf.getvalue()
 
 
-K1_SWEEP = (1, 7, 12, 16, 24, 32, 48, 64, 96, 192, 768, 1500)  # 12: super-res; 768: res-128 train
-K1_TIMED = (12, 48, 96, 768, 1500)  # 1500: a res-64 gallery batch of 500
+# 12: super-res; 768: res-128 train; 1024: latent res-256 train (batch 256 x 4)
+K1_SWEEP = (1, 7, 12, 16, 24, 32, 48, 64, 96, 192, 768, 1024, 1500)
+K1_TIMED = (12, 48, 96, 768, 1024, 1500)  # 1500: a res-64 gallery batch of 500
 STEP0_M = (192, 1500)  # where the 3xTF32 arithmetic was first held to fp64
 
 
@@ -1110,12 +1185,13 @@ def phase_train(torch, work, bn_dir):
     os.makedirs(os.path.join(work, "train"))
     with contextlib.chdir(os.path.join(work, "train")):
         run = os.path.abspath(output_folder_name(parse_args(argv)))
-        record = []
+        record, last = [], {}
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        with watched_trainer(record):
+        with watched_trainer(record, last=last):
             text = run_cli(argv + [f"--max_steps={steps}"])
         counts = read_launches()
+        steady = _steady(torch, last, bs, "train")
         counts_k3 = counts["fused_bluenoise_grad"]
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         losses = np.atleast_1d(np.loadtxt(os.path.join(run, "losses.txt")))
@@ -1124,7 +1200,7 @@ def phase_train(torch, work, bn_dir):
             f"parameters; K2 launches {counts['fused_bluenoise']}, K1 launches "
             f"{counts['tri_matmul']}; losses {losses.tolist()}; scheduler params "
             f"{sched.tolist()}; peak device memory {peak_gib:.2f} GiB")
-        check(len(record) == steps and all(p == 113_676_678 for _, p in record),
+        check(len(record) == steps and all(p == 113_676_678 for _, p, _ in record),
               f"expected {steps} steps of the 113.7M UNet, got {record}")
         check(counts["fused_bluenoise"] == steps, "K2 must launch once per train step")
         check(counts["fused_bluenoise_grad"] == steps, "K3 must run once per train step")
@@ -1152,23 +1228,331 @@ def phase_train(torch, work, bn_dir):
         check(os.path.exists(os.path.join(run, f"checkpoints/{steps + 1}/state.pt")),
               "the resumed run saved no checkpoint")
 
-    secs = [s for s, _ in record]
-    steady = bs * (steps - 1) / sum(secs[1:])
-    log(f"train: first step {secs[0]:.3f} s; steps 2-{steps}: {steady:.2f} images/s "
-        f"(host clock, synchronised; per step {[round(s, 4) for s in secs[1:]]})")
+    secs = [s for s, *_ in record]
+    rate = bs * (steps - 1) / sum(secs[1:])
+    log(f"train: first step {secs[0]:.3f} s; steps 2-{steps}: {rate:.2f} images/s "
+        f"(host clock, synchronised; per step {[round(s, 4) for s in secs[1:]]}; main-thread "
+        f"CPU per step {[round(c, 4) for *_, c in record[1:]]})")
     if kern:
         busy_ms = _busy_us([(e.time_range.start, e.time_range.end) for e in kern]) / 1e3
         mean_ms = 1e3 * sum(secs[1:]) / (steps - 1)
         k2_us = sum(e.time_range.elapsed_us() for e in kern if "fused_bluenoise" in e.name)
         log(f"trace train step (bs {bs}, resumed step): device busy {busy_ms:.2f} ms, "
-            f"{100 * busy_ms / mean_ms:.1f} % of the untraced mean step {mean_ms:.2f} ms; "
+            f"{100 * busy_ms / mean_ms:.1f} % of the untraced mean step {mean_ms:.2f} ms, "
+            f"{100 * busy_ms / steady[1]:.1f} % of the steady median step {steady[1]:.2f} ms; "
             f"{len(kern)} kernels; K2 {k2_us / 1e3:.4f} ms")
         _log_top(kern)
     else:
         log("trace train step: device time not measured (the profiler saw no CUDA kernels)")
     return {"launches": steps, "k3_launches": counts_k3, "first_step_s": secs[0],
-            "images_per_s": steady,
+            "images_per_s": rate, "steady_images_per_s": steady[0],
             "step_s": secs, "peak_gib": peak_gib}
+
+
+# scripts/sampling/cat_res64_test.sh:7 (the DDIM baseline: res 64, the 3 -> 3
+# UNet, 1000 train T, 250 leading steps, clip_sample); the dataset's name
+# keeps the reference's replicability filter (cat_res64: batch 4 only) out
+DDIM64 = ["--dataset_name=procedural_cat_res64", "--resolution=64", "--random_flip",
+          "--output_dir=ddim_cat_res64", "--gradient_accumulation_steps=1",
+          "--learning_rate=1e-4", "--lr_warmup_steps=0", "--use_ema", "--device=cuda"]
+# scripts/training/latent_iadb_celeba_res256.sh:3 and latent_iadb_cat_res512.sh:6
+LATENT = ["--random_flip", "--gradient_accumulation_steps=1", "--learning_rate=1e-4",
+          "--lr_warmup_steps=0", "--out_channels=4", "--noise_type=gaussianBN", "--device=cuda"]
+LATENT256 = LATENT + ["--dataset_name=celeba_res256", "--resolution=256",
+                      "--output_dir=latent_iadb_celeba_res256"]
+LATENT512 = LATENT + ["--dataset_name=cat_res512", "--resolution=512",
+                      "--output_dir=latent_iadb_cat_res512"]
+
+
+def _check_files(run, files):
+    for f in files:
+        check(os.path.exists(os.path.join(run, f)), f"the run folder lacks {f}")
+
+
+def _step_rates(record, bs):
+    """(first step's seconds, images/s over the steps after it)."""
+    secs = [s for s, *_ in record]
+    return secs[0], (bs * (len(secs) - 1) / sum(secs[1:]) if len(secs) > 1 else None)
+
+
+STEADY_STEPS = 12
+
+
+def _steady(torch, last, bs, label):
+    """``STEADY_STEPS`` more calls of a CLI run's last train step (its last
+    batch, after the CLI returned: no loader thread decodes beside them).
+    Logs and returns (images/s, median step ms, median main-thread CPU ms
+    a step) on the host clock, synchronised."""
+    import statistics
+
+    again = last.pop("again")
+    wall, cpu = [], []
+    for _ in range(STEADY_STEPS):
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.thread_time()
+        again()
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        cpu.append(time.thread_time() - c0)
+    rate = bs * len(wall) / sum(wall)
+    med, med_cpu = 1e3 * statistics.median(wall), 1e3 * statistics.median(cpu)
+    log(f"{label}: {STEADY_STEPS} steady steps (the last batch again, no loader thread): "
+        f"{rate:.2f} images/s, median step {med:.2f} ms, main-thread CPU {med_cpu:.2f} ms a "
+        f"step; per step {[round(w, 4) for w in wall]}")
+    return rate, med, med_cpu
+
+
+def _traced(kern, mean_ms, label):
+    """Log the traced step's device busy time and share and its top
+    kernels; returns (busy ms, busy share)."""
+    if not kern:
+        log(f"trace {label}: device time not measured (the profiler saw no CUDA kernels)")
+        return None, None
+    busy_ms = _busy_us([(e.time_range.start, e.time_range.end) for e in kern]) / 1e3
+    log(f"trace {label}: device busy {busy_ms:.2f} ms, {100 * busy_ms / mean_ms:.1f} % of "
+        f"the untraced mean step {mean_ms:.2f} ms; {len(kern)} kernels")
+    _log_top(kern)
+    return busy_ms, busy_ms / mean_ms
+
+
+def phase_ddim(torch, work):
+    """The DDIM baseline at full width (random seeded weights):
+
+    (a) train: the CLI for 8 steps at batch 64 with --use_ema on 512
+        procedural images, 12 steady steps (the last batch again), then
+        one resumed step (--resume_from_checkpoint latest), traced; no
+        hand kernel on the path;
+    (b) test: 2 batches of 16, plain, 250 steps, with frames; then
+        --conv_int8 (static) --cache_interval 8 on the same weights, one
+        batch of 16, its calibration seconds beside;
+    (c) one fp32 DDIM step (UNet + scheduler, TF32 off) on the card against
+        the CPU at 1e-3, and the same bits from a second call.
+    """
+    import numpy as np
+
+    from bndm_tpu_torch.data.imagefolder import make_procedural_folder
+    from bndm_tpu_torch.models.unet2d import UNet2D, unet_config_for_res
+    from bndm_tpu_torch.samplers import ddim as sddim
+    from bndm_tpu_torch.train import ddim as tddim
+
+    out = {}
+    bs, steps = 64, 8
+    data = os.path.join(work, "data_ddim")
+    make_procedural_folder(os.path.join(data, "procedural_cat_res64"), n=bs * steps, res=64,
+                           seed=11)
+    argv = DDIM64 + [f"--data_root={data}"]
+    train = argv + ["--train_or_test=train", f"--train_batch_size={bs}", "--num_epochs=1"]
+    run = os.path.join(work, "results_gaussianBN", "ddim_cat_res64_ema")
+
+    # (a)
+    record, last = [], {}
+    reset_launches()
+    with watched_steps(record, tddim, "make_ddim_train_step", last=last):
+        run_cli(train + [f"--max_steps={steps}"], "ddim")
+    counts = read_launches()
+    steady = _steady(torch, last, bs, "ddim train")
+    losses = np.atleast_1d(np.loadtxt(os.path.join(run, "losses.txt")))
+    log(f"ddim train: {len(record)} steps of batch {bs}, {record[0][1] if record else 0} "
+        f"parameters; launches {counts}; losses {losses.tolist()}")
+    check(len(record) == steps and all(p == 113_673_219 for _, p, _ in record),
+          f"expected {steps} steps of the 113.7M 3->3 UNet, got {record}")
+    check(not any(counts.values()), "no hand kernel is on the DDIM path")
+    check(losses.shape == (steps,) and bool(np.isfinite(losses).all()),
+          "losses.txt must hold one finite loss per step")
+    _check_files(run, ("unet/model.npz", "unet_ema/model.npz", "unet/config.json",
+                       "unet/diffusion_pytorch_model.safetensors",
+                       "scheduler/scheduler_config.json", "model_index.json",
+                       f"checkpoints/{steps}/state.pt"))
+    resumed, kern = [], []
+    with watched_steps(resumed, tddim, "make_ddim_train_step", traced=kern, trace_step=0):
+        text = run_cli(train + [f"--max_steps={steps + 1}", "--resume_from_checkpoint=latest"],
+                       "ddim")
+    check(f"Resuming from checkpoint step {steps}" in text, "the resume did not restart at step 8")
+    check(len(resumed) == 1, "the resumed run must take one step")
+    _check_files(run, (f"checkpoints/{steps + 1}/state.pt",))
+    first, rate = _step_rates(record, bs)
+    log(f"ddim train: first step {first:.3f} s; steps 2-{steps}: {rate:.2f} images/s (host "
+        f"clock, synchronised; main-thread CPU per step {[round(c, 4) for *_, c in record[1:]]})")
+    busy, share = _traced(kern, 1e3 * bs / rate, f"ddim train step (bs {bs}, resumed)")
+    if busy:
+        log(f"trace ddim train step: {100 * busy / steady[1]:.1f} % of the steady median step "
+            f"{steady[1]:.2f} ms")
+    out["train"] = {"images_per_s": rate, "first_step_s": first, "busy_ms": busy,
+                    "busy_share": share, "steady_images_per_s": steady[0],
+                    "steady_busy_share": busy / steady[1] if busy else None}
+
+    # (b)
+    test = argv + ["--train_or_test=test", "--eval_batch_size=16"]
+    rec = []
+    reset_launches()
+    with watched_samplers(rec, sddim, ("sample_ddim", "sample_ddim_cached")):
+        text = run_cli(test + ["--test_samples=32"], "ddim")
+    check(not any(read_launches().values()), "no hand kernel is on the DDIM path")
+    check(len(rec) == 2 and all(n == "sample_ddim" and f and s == (16, 3, 64, 64)
+                                for n, s, f, _ in rec), f"bad samples: {rec}")
+    n_img = len(os.listdir(os.path.join(run, "images")))
+    n_seq = len(os.listdir(os.path.join(run, "seqs")))
+    check(n_img == 32 and n_seq == 22, f"expected 32 images and 22 frames, got {n_img}, {n_seq}")
+    out["plain"] = [16 / sec for *_, sec in rec]
+    rec = []
+    with watched_samplers(rec, sddim, ("sample_ddim", "sample_ddim_cached")):
+        text = run_cli(test + ["--test_samples=16", "--conv_int8", "--cache_interval=8"], "ddim")
+    served = [r for r in rec if r[0] == "sample_ddim_cached"]
+    cal = [r for r in rec if r[0] == "sample_ddim"]
+    check(len(served) == 1 and served[0][2] and served[0][1] == (16, 3, 64, 64)
+          and len(cal) == 1 and "serving calibration:" in text, f"bad tier run: {rec}")
+    out["tier"] = {"samples_per_s": 16 / served[0][3], "calibration_s": cal[0][3]}
+    log(f"ddim test: samples/s (sampler only, synchronised) plain {out['plain']}; "
+        f"int8-static + cached(i=8) {out['tier']['samples_per_s']:.2f}, calibration "
+        f"{cal[0][3]:.2f} s (8 samples)")
+
+    # (c)
+    torch.manual_seed(12)
+    cfg = unet_config_for_res(64)
+    cpu = UNet2D(cfg).eval()
+    gpu = UNet2D(cfg, device="cuda").eval()
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(13))
+    sc, sg = sddim.DDIMScheduler(), sddim.DDIMScheduler().to("cuda")
+    sc.set_timesteps(250)
+    sg.set_timesteps(250)
+    i = 125  # t = 496, mid-trajectory
+    was = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with torch.no_grad():
+            want = sc.step(cpu(x, sc.timesteps[i].float().expand(2)), sc.timesteps[i], x)
+            xg = x.cuda()
+            got = [sg.step(gpu(xg, sg.timesteps[i].float().expand(2)), sg.timesteps[i], xg)
+                   for _ in range(2)]
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = was
+    err = (got[0].cpu() - want).abs().max().item()
+    ok = torch.allclose(got[0].cpu(), want, rtol=1e-3, atol=1e-3)
+    same = torch.equal(got[0], got[1])
+    log(f"ddim fp32 step (t = {int(sc.timesteps[i])}), CUDA vs CPU: max|err| {err:.3e} "
+        f"(rtol=atol=1e-3) {'ok' if ok else 'FAIL'}; second call "
+        f"{'the same bits' if same else 'OTHER BITS'}")
+    check(ok and same and bool(torch.isfinite(got[0]).all()), "the DDIM step disagrees")
+    out["step_max_abs_err"] = err
+    return out
+
+
+def _latent_train(torch, argv, run, bs, steps, kernel, params, trace):
+    """The latent CLI's train mode for ``steps`` steps (the last traced
+    under ``trace``): the named hand kernel launched once a step, the other
+    not at all."""
+    import numpy as np
+
+    from bndm_tpu_torch.train import latent as tlatent
+
+    record, kern = [], []
+    reset_launches()
+    with watched_steps(record, tlatent, "make_latent_train_step", traced=kern if trace else None,
+                       trace_step=steps - 1):
+        text = run_cli(argv + ["--train_or_test=train", f"--train_batch_size={bs}",
+                               f"--num_epochs={steps}", f"--max_steps={steps}"], "latent_iadb")
+    counts = read_launches()
+    losses = np.atleast_1d(np.loadtxt(os.path.join(run, "losses.txt")))
+    log(f"latent train ({run.rsplit('/', 1)[-1]}): {len(record)} steps of batch {bs}, "
+        f"{record[0][1] if record else 0} parameters; launches {counts}; losses "
+        f"{losses.tolist()}")
+    other = "fused_bluenoise" if kernel == "tri_matmul" else "tri_matmul"
+    check(len(record) == steps and all(p == params for _, p, _ in record),
+          f"expected {steps} steps of the {params}-parameter UNet, got {record}")
+    check(counts[kernel] == steps, f"{kernel} must launch once per latent train step")
+    check(counts[other] == 0, f"{other} is not on this latent training path")
+    check(losses.shape == (steps,) and bool(np.isfinite(losses).all()),
+          "losses.txt must hold one finite loss per step")
+    check("latent cache built:" in text, "no latent cache was built")
+    _check_files(run, ("unet/model.npz", "unet/config.json", "model_index.json",
+                       f"checkpoints/{steps}/state.pt"))
+    first, rate = _step_rates(record[:-1] if trace else record, bs)
+    n_rate = steps - 1 - bool(trace)
+    log(f"latent train: first step {first:.3f} s, then {rate:.2f} images/s over steps 2-"
+        f"{n_rate + 1} (host clock, synchronised, untraced; per step "
+        f"{[round(s, 4) for s, *_ in record[1:]]}, main-thread CPU "
+        f"{[round(c, 4) for *_, c in record[1:]]})")
+    busy = share = None
+    if trace:
+        busy, share = _traced(kern, 1e3 * bs / rate,
+                              f"latent train step {steps} (bs {bs}; mean of {n_rate})")
+    return {"launches": counts[kernel], "images_per_s": rate, "first_step_s": first,
+            "busy_ms": busy, "busy_share": share, "rate_steps": n_rate}
+
+
+def phase_latent(torch, work, bn_dir):
+    """The latent pipeline at full width: the celeba_res256 config (latent32
+    UNet, out 4 x 2 two-head, gaussianBN, lr 1e-4) with the default SD-VAE
+    config (random init):
+
+    (a) the cache from 128 procedural 256^2 images (256 latents), then 10
+        train steps at batch 256, one an epoch (the last traced, the rate
+        over steps 2-9): K1 once per step, K2 never;
+    (b) test: one batch of 16, 250 steps, --decode_microbatch 16;
+    (c) the VAE's fp32 decode of 2 latents on the card against the CPU at
+        1e-3.
+    """
+    import re
+
+    from bndm_tpu_torch.data.imagefolder import make_procedural_folder
+    from bndm_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from bndm_tpu_torch.samplers import iadb
+
+    data = os.path.join(work, "data_latent")
+    make_procedural_folder(os.path.join(data, "celeba_res256"), n=128, res=256, seed=14)
+    argv = LATENT256 + [f"--data_root={data}", f"--bluenoise_dir={bn_dir}"]
+    run = os.path.join(work, "results_gaussianBN", "latent_iadb_celeba_res256_gaussianBN")
+    out = {"train": _latent_train(torch, argv, run, 256, 10, "tri_matmul", 25_845_512, True)}
+
+    rec = []
+    reset_launches()
+    with watched_samplers(rec, iadb, ("sample_iadb",)):
+        text = run_cli(argv + ["--train_or_test=test", "--eval_batch_size=16",
+                               "--test_samples=16", "--decode_microbatch=16"], "latent_iadb")
+    check(not any(read_launches().values()), "no hand kernel is on the latent sampling path")
+    check(len(rec) == 1 and rec[0][2] and rec[0][1] == (16, 4, 32, 32), f"bad samples: {rec}")
+    m = re.search(r"batch 0: 16 samples in \S+s \((\S+) samples/s\)", text)
+    n_img = len(os.listdir(os.path.join(run, "images")))
+    check(m is not None and n_img == 16, f"expected 16 decoded images, got {n_img}")
+    out["test"] = {"sampler_samples_per_s": 16 / rec[0][3],
+                   "with_decode_samples_per_s": float(m.group(1))}
+    log(f"latent test: 16 samples, sampler {out['test']['sampler_samples_per_s']:.2f} "
+        f"samples/s, sampler + decode {out['test']['with_decode_samples_per_s']:.2f} samples/s "
+        "(host clock, synchronised)")
+
+    torch.manual_seed(0)
+    cpu = AutoencoderKL(VAEConfig()).eval()
+    n_params = sum(p.numel() for p in cpu.parameters())
+    gpu = AutoencoderKL(VAEConfig(), device="cuda").eval()
+    gpu.load_state_dict(cpu.state_dict())
+    z = torch.randn(2, 4, 32, 32, generator=torch.Generator().manual_seed(15))
+    with torch.no_grad():
+        want = cpu.decode(z)
+        got = gpu.decode(z.cuda()).cpu()
+    err = (got - want).abs().max().item()
+    ok = torch.allclose(got, want, rtol=1e-3, atol=1e-3)
+    log(f"VAE fp32 decode of 2 latents (SD config, {n_params} parameters), CUDA vs CPU: "
+        f"max|err| {err:.3e} (rtol=atol=1e-3, output max|.| {want.abs().max().item():.3f}) "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok and n_params == 83_653_863 and got.shape == (2, 3, 256, 256),
+          "the VAE decode disagrees between CUDA and the CPU")
+    out["vae_max_abs_err"] = err
+    return out
+
+
+def phase_latent512(torch, work, bn_dir):
+    """The cat_res512 latent config, reduced: 6 train steps at batch 64
+    (published: 256) on 32 procedural 512^2 images (64 latents, one batch
+    an epoch; the last traced, the rate over steps 2-5): K2 once per step,
+    K1 never."""
+    from bndm_tpu_torch.data.imagefolder import make_procedural_folder
+
+    data = os.path.join(work, "data_latent512")
+    make_procedural_folder(os.path.join(data, "cat_res512"), n=32, res=512, seed=16)
+    argv = LATENT512 + [f"--data_root={data}", f"--bluenoise_dir={bn_dir}"]
+    run = os.path.join(work, "results_gaussianBN", "latent_iadb_cat_res512_gaussianBN")
+    return _latent_train(torch, argv, run, 64, 6, "fused_bluenoise", 113_680_136, True)
 
 
 def _log_top(kern, k=5):
@@ -1191,51 +1575,67 @@ def _busy_us(intervals):
     return busy
 
 
-def phase_trace(torch):
-    """Where a served step's time goes: one UNet forward of each branch at
-    its served shape, in bf16 as the CLI serves it. The host-clock time per
-    forward is taken without the profiler (which slows dispatch); the
-    device's busy time and the kernels come from torch.profiler."""
+def _trace_forward(torch, name, fn, shape_note, n=5):
+    """Host-clock time per call of ``fn`` without the profiler (which slows
+    dispatch), then the device's busy time and top kernels from
+    torch.profiler over ``n`` calls."""
     from torch.profiler import ProfilerActivity, profile
 
-    from bndm_tpu_torch.models.unet2d import UNet2D, unet_config_for_res
+    with torch.no_grad():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / n * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+    kern = device_kernels(prof)
+    if not kern:
+        log(f"trace {name}: {wall_ms:.2f} ms (host clock); device time not measured (the "
+            "profiler saw no CUDA kernels)")
+        return
+    busy_ms = _busy_us([(e.time_range.start, e.time_range.end) for e in kern]) / n / 1e3
+    log(f"trace {name} ({shape_note}): {wall_ms:.2f} ms (host clock), device busy "
+        f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %), {len(kern) / n:.0f} kernels "
+        "per call")
+    _log_top(kern)
 
-    n = 5
-    for name, res, in_ch, bs in (("super-res", 128, 6, 1), ("unconditional", 64, 3, 16)):
+
+def phase_trace(torch):
+    """Where a served step's time goes: one UNet forward of each branch at
+    its served shape, in bf16 as the CLI serves it (the pixel branches, the
+    DDIM baseline, the latent res-256 sampler), and one VAE decode of a
+    batch of 16 latents in bf16 (the latent test's microbatch)."""
+    from bndm_tpu_torch.models.unet2d import UNet2D, unet_config_for_res
+    from bndm_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+
+    for name, layout, in_ch, out_ch, bs, res in (
+            ("super-res", 128, 6, 6, 1, 128), ("unconditional", 64, 3, 6, 16, 64),
+            ("ddim", 64, 3, 3, 16, 64), ("latent res-256", "latent32", 4, 8, 16, 32)):
         torch.manual_seed(6)
-        cfg = unet_config_for_res(res, in_channels=in_ch, out_channels=6, dtype="bfloat16")
+        cfg = unet_config_for_res(layout, in_channels=in_ch, out_channels=out_ch,
+                                  dtype="bfloat16")
         model = UNet2D(cfg, device="cuda").cast_params_().eval()
         x = torch.randn(bs, in_ch, res, res, device="cuda")
         t = torch.full((bs,), 0.5, device="cuda")
-        with torch.no_grad():
-            for _ in range(3):
-                model(x, t)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n):
-                model(x, t)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) / n * 1e3
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(n):
-                    model(x, t)
-                torch.cuda.synchronize()
-        kern = device_kernels(prof)
-        if not kern:
-            log(f"trace {name}: forward {wall_ms:.2f} ms (host clock); device time not "
-                "measured (the profiler saw no CUDA kernels)")
-            continue
-        busy_ms = _busy_us([(e.time_range.start, e.time_range.end) for e in kern]) / n / 1e3
-        log(f"trace {name} (bs {bs}, res {res}, bf16): forward {wall_ms:.2f} ms (host clock), "
-            f"device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %), "
-            f"{len(kern) / n:.0f} kernels per forward")
-        _log_top(kern)
+        _trace_forward(torch, name, lambda: model(x, t), f"bs {bs}, res {res}, bf16, forward")
         del model
+    vae = AutoencoderKL(VAEConfig(dtype="bfloat16"), device="cuda").eval()
+    z = torch.randn(16, 4, 32, 32, device="cuda")
+    _trace_forward(torch, "VAE decode", lambda: vae.decode(z), "16 latents of 32^2 -> 256^2, bf16",
+                   n=3)
+    del vae
 
 
 def main(argv):
-    if argv not in ([], ["--kernels"], ["--probes"], ["--tiers"]):
-        log(f"FAIL: unknown arguments {argv} (the options are --kernels, --probes and --tiers)")
+    if argv not in ([], ["--kernels"], ["--probes"], ["--tiers"], ["--pipelines"], ["--train"]):
+        log(f"FAIL: unknown arguments {argv} (the options are --kernels, --probes, --tiers, "
+            "--pipelines and --train)")
         return 2
     only = argv[0] if argv else None
     if not os.path.isdir(os.path.join(HERE, "bndm_tpu_torch")):
@@ -1282,6 +1682,16 @@ def main(argv):
         if only == "--tiers":  # phase 9b alone: no kernel is timed
             phase_serving_tiers(torch, work, bn_dir)
             return finish(torch, kind, [], t_start)
+        if only == "--train":  # phase 10 alone: no kernel is timed
+            tr = phase_train(torch, work, bn_dir)
+            log(f"train: {tr['images_per_s']:.2f} images/s over steps 2-8, steady "
+                f"{tr['steady_images_per_s']:.2f}")
+            return finish(torch, kind, [], t_start)
+        if only == "--pipelines":  # phases 12-14 alone: no kernel is timed
+            phase_ddim(torch, work)
+            phase_latent(torch, work, bn_dir)
+            phase_latent512(torch, work, bn_dir)
+            return finish(torch, kind, [], t_start)
         flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB > L2
 
         # 3-4. K1, K2 and K3
@@ -1317,12 +1727,29 @@ def main(argv):
         torch.cuda.empty_cache()
         # 11. where a served step's time goes
         phase_trace(torch)
+        torch.cuda.empty_cache()
+        # 12-14. the HF-style pipelines: DDIM, latent res-256, latent res-512
+        t0 = time.time()
+        dd = phase_ddim(torch, work)
+        torch.cuda.empty_cache()
+        la = phase_latent(torch, work, bn_dir)
+        torch.cuda.empty_cache()
+        la512 = phase_latent512(torch, work, bn_dir)
+        log(f"pipelines: {time.time() - t0:.1f}s; DDIM train {dd['train']['images_per_s']:.2f} "
+            f"images/s (steady {dd['train']['steady_images_per_s']:.2f}), plain {dd['plain']} samples/s, int8 + cached(i=8) "
+            f"{dd['tier']['samples_per_s']:.2f}; latent res-256 train "
+            f"{la['train']['images_per_s']:.2f} images/s, test "
+            f"{la['test']['with_decode_samples_per_s']:.2f} samples/s with the decode; latent "
+            f"res-512 train {la512['images_per_s']:.2f} images/s (batch 64)")
 
     kernels = k_kernels(k1, k2, (sr["launches"], tr["launches"], tr["k3_launches"]))
     kernels[0]["launches_serving_tiers"] = tiers["superres int8+cached(i=8)"]["k1"]
+    kernels[0]["launches_latent256_train"] = la["train"]["launches"]
+    kernels[0]["latent256_train_shape"] = next(r for r in k1[0] if r["m"] == 1024)
+    kernels[1]["launches_latent512_train"] = la512["launches"]
     kernels += probe_kernels(probes)
-    log(f"train: {tr['images_per_s']:.2f} images/s over steps 2-8, first step "
-        f"{tr['first_step_s']:.3f} s (batch 64)")
+    log(f"train: {tr['images_per_s']:.2f} images/s over steps 2-8, steady "
+        f"{tr['steady_images_per_s']:.2f}, first step {tr['first_step_s']:.3f} s (batch 64)")
     return finish(torch, kind, kernels, t_start)
 
 

@@ -20,6 +20,7 @@ import torch
 from bndm_tpu.ops.noise import get_noise as j_get_noise
 from bndm_tpu_torch.ops import cuda_bluenoise as cb
 from bndm_tpu_torch.ops.noise import fresh_shape, get_noise, takes_fused
+from test_torch_port_serving_tiers import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 U32 = 0xFFFFFFFF
 

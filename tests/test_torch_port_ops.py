@@ -25,6 +25,7 @@ from bndm_tpu_torch.ops import schedules as tsched
 from bndm_tpu_torch.ops.cuda_bluenoise import apply_L, tri_matmul
 from bndm_tpu_torch.utils import image as timage
 from bndm_tpu_torch.utils import metrics as tmetrics
+from test_torch_port_serving_tiers import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 T = 250
 

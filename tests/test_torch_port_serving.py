@@ -35,6 +35,7 @@ from bndm_tpu_torch.samplers import iadb as tiadb
 from bndm_tpu_torch.utils.image import superres_condition as t_superres
 from bndm_tpu_torch.utils.metrics import psnr as t_psnr
 from bndm_tpu_torch.utils.metrics import ssim as t_ssim
+from test_torch_port_serving_tiers import _one_torch_thread  # noqa: F401 (autouse fixture)
 from test_torch_port_unet import TINY, random_flax_params
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -288,4 +289,9 @@ def test_port_imports_no_jax():
                 continue
             found += [(f.name, n) for n in names if n.split(".")[0] in banned]
     assert len(files) > 20
+    # the HF-style pipelines' modules are among the scanned
+    for mod in ("cli/ddim.py", "cli/latent_iadb.py", "cli/hf_args.py", "models/vae.py",
+                "samplers/ddim.py", "train/ddim.py", "train/latent.py", "train/ema.py",
+                "train/schedules_lr.py", "data/latent_cache.py"):
+        assert REPO / "bndm_tpu_torch" / mod in files, mod
     assert not found

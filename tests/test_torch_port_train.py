@@ -30,6 +30,7 @@ from bndm_tpu_torch.models import unet2d as P
 from bndm_tpu_torch.models.convert import flax_from_state_dict, state_dict_from_flax
 from bndm_tpu_torch.train import losses as tl
 from bndm_tpu_torch.train import pixel as tp
+from test_torch_port_serving_tiers import _one_torch_thread  # noqa: F401 (autouse fixture)
 from test_torch_port_unet import TINY, random_flax_params
 
 # the trainer's own behaviour (learning, resume, the clamp, remat) on a tiny
