@@ -29,6 +29,38 @@ def resolve_device(name="cuda"):
     return dev
 
 
+def start_distributed(opt, device):
+    """Join the multi-process run the launch flags ask for
+    (``--coordinator_address``, ``--num_processes``, ``--process_id``, as
+    the JAX CLIs take them; NCCL on CUDA, gloo on the CPU) and return this
+    rank's device; ``device`` as it is for a single process."""
+    if opt.coordinator_address or (opt.num_processes or 0) > 1:
+        from bndm_tpu_torch.parallel.distributed import init_distributed
+
+        return init_distributed(opt.coordinator_address, opt.num_processes, opt.process_id,
+                                device=device)
+    return device
+
+
+def is_main_process():
+    """Rank 0 (or the only process): the one that writes files."""
+    from bndm_tpu_torch.parallel.distributed import host_shard_info
+
+    return host_shard_info()[0] == 0
+
+
+def rows_of(mesh, x0):
+    """This rank's block of the batch ``x0`` (which every rank holds), and
+    the function that gathers the ranks' results back into the batch; the
+    whole ``x0`` and the identity without a mesh or where the rows do not
+    divide across the ranks (the JAX CLIs shard only a divisible batch)."""
+    from bndm_tpu_torch.parallel.mesh import gather_batch, shard_batch
+
+    if mesh is None or x0.shape[0] % mesh.size():
+        return x0, lambda y: y
+    return shard_batch(mesh, x0), lambda y: gather_batch(mesh, y)
+
+
 def disable_tf32():
     """Full fp32 for float32 matmuls and convolutions. cuDNN runs fp32
     convolutions in TF32 by default (10-bit mantissa); the JAX reference's
@@ -168,18 +200,24 @@ def load_tree_unet_params(out_dir):
 
 
 def hf_train_loop(args, state, train_step, epoch_batches, out_dir, save_eval, *, device,
-                  steps_per_epoch, loss_fmt):
+                  steps_per_epoch, loss_fmt, mesh=None):
     """The train loop of the DDIM and latent CLIs, as the JAX CLIs run it:
     ``--resume_from_checkpoint`` ("latest" or checkpoint-N) restores the
-    whole state and continues its step count (the epochs start again from
-    0); one ``train_step(state, batch, (seed, step))`` per batch of
-    ``epoch_batches(epoch)``; a checkpoint every ``--checkpointing_steps``
-    and at the end; the losses read back once per epoch and logged; ``save_eval(state)``, losses.txt and losses.png after every
-    ``--save_model_epochs``-th epoch and the last; ``--max_steps`` caps the
-    steps."""
+    whole state on every rank and continues its step count (the epochs
+    start again from 0), then rank 0's state is broadcast (``replicate``);
+    one ``train_step(state, batch, (seed, step))`` per batch of
+    ``epoch_batches(epoch)`` (this rank's rows); a checkpoint every
+    ``--checkpointing_steps`` and at the end; the losses read back once per
+    epoch and logged; ``save_eval(state)``, losses.txt and losses.png after
+    every ``--save_model_epochs``-th epoch and the last; ``--max_steps``
+    caps the steps. Only rank 0 writes, and every rank waits for its
+    writes."""
     from bndm_tpu_torch.ckpt.manager import CheckpointManager
+    from bndm_tpu_torch.parallel.distributed import barrier
+    from bndm_tpu_torch.parallel.mesh import replicate
     from bndm_tpu_torch.utils.logging import MetricLogger, save_loss_curve
 
+    main = is_main_process()
     mgr = CheckpointManager(os.path.join(out_dir, "checkpoints"),
                             max_to_keep=args.checkpoints_total_limit or 3)
     step = 0
@@ -193,7 +231,14 @@ def hf_train_loop(args, state, train_step, epoch_batches, out_dir, save_eval, *,
         else:
             print(f"Checkpoint '{args.resume_from_checkpoint}' does not exist. "
                   "Starting a new training run.")
-    logger = MetricLogger(os.path.join(out_dir, args.logging_dir))
+    replicate(mesh, state)
+
+    def save(step):
+        if main:
+            mgr.save(step, state)
+        barrier()
+
+    logger = MetricLogger(os.path.join(out_dir, args.logging_dir)) if main else None
     losses = []
     for epoch in range(args.num_epochs):
         epoch_metrics = []
@@ -202,24 +247,27 @@ def hf_train_loop(args, state, train_step, epoch_batches, out_dir, save_eval, *,
             epoch_metrics.append(train_step(state, batch, (args.seed, step))["loss"])
             step += 1
             if step % args.checkpointing_steps == 0:
-                mgr.save(step, state)
+                save(step)
             if args.max_steps and step >= args.max_steps:
                 break
         fetched = torch.stack(epoch_metrics).cpu().numpy() if epoch_metrics else []
-        for off, loss in enumerate(fetched):
-            losses.append(float(loss))
-            logger.log({"loss": losses[-1]}, step - len(fetched) + off)
-        print(f"epoch {epoch}: mean loss {np.mean(losses[-steps_per_epoch:]):{loss_fmt}}")
-        if epoch % args.save_model_epochs == 0 or epoch == args.num_epochs - 1:
-            save_eval(state)
-            np.savetxt(os.path.join(out_dir, "losses.txt"), np.asarray(losses))
-            save_loss_curve(losses, os.path.join(out_dir, "losses.png"))
+        losses.extend(float(loss) for loss in fetched)
+        if main:
+            for off, loss in enumerate(fetched):
+                logger.log({"loss": float(loss)}, step - len(fetched) + off)
+            print(f"epoch {epoch}: mean loss {np.mean(losses[-steps_per_epoch:]):{loss_fmt}}")
+            if epoch % args.save_model_epochs == 0 or epoch == args.num_epochs - 1:
+                save_eval(state)
+                np.savetxt(os.path.join(out_dir, "losses.txt"), np.asarray(losses))
+                save_loss_curve(losses, os.path.join(out_dir, "losses.png"))
+        barrier()
         if args.max_steps and step >= args.max_steps:
             break
-    mgr.save(step, state)
+    save(step)
     mgr.wait()
     mgr.close()
-    logger.close()
+    if main:
+        logger.close()
 
 
 def _to_numpy(arr):

@@ -8,8 +8,11 @@ diffusers ``save_pretrained`` tree. Test: 250-step DDIM sampling, with the
 reference's saved-noise replicability hook and seqs/images naming, and the
 serving tiers (``--conv_int8``/``--int8_mode``, ``--static_gn`` keyed on the
 scan position, ``--attn_softmax_dtype``, ``--cache_interval``). It runs on
-CUDA unless ``--device=cpu`` is given, and raises when CUDA is missing; the
-multi-host flags raise ``NotImplementedError``.
+CUDA unless ``--device=cpu`` is given, and raises when CUDA is missing. The
+multi-host flags (``--coordinator_address``, ``--num_processes``,
+``--process_id``) run it data parallel, as the pixel CLI does: each rank
+trains on its rows of the global batch, or samples its block of each batch,
+and rank 0 writes.
 
 Usage mirrors the reference scripts, e.g.:
   python -m bndm_tpu_torch.cli.ddim --dataset_name=cat_res64 --resolution=64 \
@@ -60,6 +63,7 @@ def run_train(args, device):
     from bndm_tpu_torch.models.convert import (ddim_scheduler_config, export_pipeline_tree,
                                                flax_from_state_dict)
     from bndm_tpu_torch.models.unet2d import UNet2D
+    from bndm_tpu_torch.parallel.mesh import data_shard, run_mesh
     from bndm_tpu_torch.train.ddim import DDIMTrainConfig, make_ddim_train_step
     from bndm_tpu_torch.train.schedules_lr import hf_adamw
 
@@ -72,15 +76,19 @@ def run_train(args, device):
     ds = ImageFolderDataset(os.path.join(args.data_root, args.dataset_name), args.resolution,
                             random_flip=args.random_flip, seed=args.seed,
                             random_crop=not args.center_crop)
-    loader = BatchLoader(ds, args.train_batch_size, seed=args.seed,
-                         num_threads=args.dataloader_num_workers or 8)
+    # each rank loads its block of the global batch
+    mesh = run_mesh(args.train_batch_size)
+    shard_index, shard_count = data_shard(mesh)
+    loader = BatchLoader(ds, args.train_batch_size // shard_count, seed=args.seed,
+                         num_threads=args.dataloader_num_workers or 8,
+                         shard_index=shard_index, shard_count=shard_count)
     steps_total = max(len(loader), 1) * args.num_epochs
     cfg = DDIMTrainConfig(
         ddpm_num_steps=args.ddpm_num_steps, ddpm_beta_schedule=args.ddpm_beta_schedule,
         prediction_type=args.prediction_type, use_ema=args.use_ema,
         ema_inv_gamma=args.ema_inv_gamma, ema_power=args.ema_power,
         ema_max_decay=args.ema_max_decay)
-    train_step, init_state = make_ddim_train_step(cfg, hf_adamw(args, steps_total))
+    train_step, init_state = make_ddim_train_step(cfg, hf_adamw(args, steps_total), mesh)
     state = init_state(model.train())
 
     def save_eval(state):
@@ -98,7 +106,7 @@ def run_train(args, device):
                              pipeline_class="DDIMPipeline")
 
     hf_train_loop(args, state, train_step, loader.epoch, out_dir, save_eval, device=device,
-                  steps_per_epoch=max(len(loader), 1), loss_fmt=".5f")
+                  steps_per_epoch=max(len(loader), 1), loss_fmt=".5f", mesh=mesh)
     return out_dir
 
 
@@ -117,8 +125,10 @@ def load_scheduler(args, out_dir):
 
 
 def run_test(args, device):
-    from bndm_tpu_torch.cli.common import (load_tree_unet_params, make_generator,
-                                           save_image_grid, serving_relax_kw, synchronize)
+    from bndm_tpu_torch.cli.common import (is_main_process, load_tree_unet_params,
+                                           make_generator, rows_of, save_image_grid,
+                                           serving_relax_kw, synchronize)
+    from bndm_tpu_torch.parallel.mesh import run_mesh
     from bndm_tpu_torch.serving import make_serving_sampler_ddim
 
     out_dir = out_dir_for(args)
@@ -148,6 +158,9 @@ def run_test(args, device):
     num_batch = max(args.test_samples // args.eval_batch_size, 1)
     cnt = 0
     times = []
+    # each rank samples its block of every batch that divides; rank 0 writes
+    mesh = run_mesh()
+    main = is_main_process()
     # paper-replicability batch filter
     replicability_batches = {
         "cat_res64": [4], "cat_res128": [0, 52], "celeba_res64": [37],
@@ -167,6 +180,8 @@ def run_test(args, device):
         else:
             x0 = torch.randn((args.eval_batch_size, 3, args.resolution, args.resolution),
                              generator=make_generator(device, args.seed, i), device=device)
+        bs = x0.shape[0]
+        x0, gather = rows_of(mesh, x0)
 
         def _run():
             if args.cache_interval:
@@ -185,23 +200,25 @@ def run_test(args, device):
         else:
             out, frames = _run()
         times.append(time.time() - t0)
-        save_image_grid(out, os.path.join(out_dir, "images", f"ddim_img{cnt:05d}_{{0}}.png"))
+        out = gather(out)  # rank 0's frames are the batch's: its block starts at row 0
+        cnt += bs
+        if not main:
+            continue
+        save_image_grid(out, os.path.join(out_dir, "images", f"ddim_img{cnt - bs:05d}_{{0}}.png"))
         for j, fr in enumerate(frames if frames is not None else ()):
             save_image_grid(fr, os.path.join(out_dir, "seqs",
-                                             f"ddim_img{cnt:05d}_step{j * 25}_{{0}}.png"))
-        cnt += x0.shape[0]
-        print(f"batch {i}: {x0.shape[0]} samples in {times[-1]:.2f}s "
-              f"({x0.shape[0] / times[-1]:.2f} samples/s)")
+                                             f"ddim_img{cnt - bs:05d}_step{j * 25}_{{0}}.png"))
+        print(f"batch {i}: {bs} samples in {times[-1]:.2f}s "
+              f"({bs / times[-1]:.2f} samples/s)")
     return out_dir
 
 
 def main(argv=None):
-    from bndm_tpu_torch.cli.common import disable_tf32, resolve_device
-    from bndm_tpu_torch.cli.hf_args import check_supported, parse_args
+    from bndm_tpu_torch.cli.common import disable_tf32, resolve_device, start_distributed
+    from bndm_tpu_torch.cli.hf_args import parse_args
 
     args = parse_args(argv)
-    check_supported(args)
-    device = resolve_device(args.device)
+    device = start_distributed(args, resolve_device(args.device))
     disable_tf32()
     np.random.seed(args.seed)
     if args.train_or_test == "train":

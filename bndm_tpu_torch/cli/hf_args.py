@@ -3,9 +3,10 @@ latent CLIs), and the argument types the CLIs share.
 
 Counterpart of ``bndm_tpu/cli/hf_args.py``: the diffusers
 train_unconditional superset plus the BNDM flags, every flag of the JAX
-parser, plus the port's ``--device`` (default ``cuda``). Distributed and hub
-flags are accepted for compatibility; the multi-host ones raise in the CLIs
-until parallelism is ported.
+parser, plus the port's ``--device`` (default ``cuda``). The hub flags are
+accepted for compatibility; the multi-host ones (``--coordinator_address``,
+``--num_processes``, ``--process_id``) start a data-parallel run
+(``cli/common.py::start_distributed``).
 """
 
 from __future__ import annotations
@@ -134,7 +135,7 @@ def build_parser():
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler Chrome trace of the first "
                         "sampled batch into this folder")
-    # multi-host launch: accepted, and refused until parallelism is ported
+    # multi-process launch (data parallelism, cli/common.py::start_distributed)
     p.add_argument("--coordinator_address", type=str, default=None,
                    help="host:port of process 0 (multi-host training)")
     p.add_argument("--num_processes", type=int, default=None)
@@ -179,12 +180,3 @@ def resolve_args(args):
 def parse_args(argv=None):
     return resolve_args(build_parser().parse_args(argv))
 
-
-def check_supported(args):
-    """Raise where the JAX CLI would start a multi-host run (a coordinator
-    address, or more than one process): that needs parallelism (ROADMAP.md
-    queue 1, item 12), which the PyTorch port does not have yet."""
-    if args.coordinator_address is not None or (args.num_processes or 0) > 1:
-        raise NotImplementedError(
-            "the multi-host flags need parallelism (ROADMAP.md queue 1, item 12), "
-            "which the PyTorch port does not have yet")

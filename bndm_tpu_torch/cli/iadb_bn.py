@@ -22,8 +22,13 @@ with the JAX CLI's checks of their combinations; as there, super-res
 leaves ``--gn_carry`` out and checks only ``--static_gn``. The sampling
 flags have no effect in train mode, where ``--conv_int8`` trains through
 the straight-through int8 convs and ``--attn_softmax_dtype`` is honored.
-The multi-host flags raise ``NotImplementedError`` naming their ROADMAP.md
-item.
+
+Data parallelism: ``--coordinator_address host:port --num_processes N
+--process_id i`` (the JAX CLI's flags) start one process per rank; each
+loads ``batch_size // N`` rows of every global batch and trains through
+``DistributedDataParallel`` (NCCL on CUDA, gloo on the CPU), and in the
+test modes each denoises its block of every batch. Rank 0 writes every
+file.
 """
 
 from __future__ import annotations
@@ -115,15 +120,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _check_supported(opt):
-    """Raise for every flag whose feature the port does not have yet."""
-    if opt.coordinator_address is not None or opt.num_processes is not None \
-            or opt.process_id is not None:
-        raise NotImplementedError(
-            "the multi-host flags need parallelism (ROADMAP.md queue 1, item 12), "
-            "which the PyTorch port does not have yet")
-
-
 def _check_serving_flags(opt):
     """The JAX CLI's checks of the serving flags' combinations."""
     if opt.static_gn and opt.scheduler_alpha != "linear":
@@ -198,24 +194,31 @@ def build(opt, device):
 
 def run_train(opt, device):
     from bndm_tpu_torch.ckpt.manager import CheckpointManager
-    from bndm_tpu_torch.cli.common import load_pixel_unet_params, save_params
+    from bndm_tpu_torch.cli.common import is_main_process, load_pixel_unet_params, save_params
     from bndm_tpu_torch.data.imagefolder import BatchLoader, ImageFolderDataset
     from bndm_tpu_torch.models.convert import export_torch_ckpt, flax_from_state_dict
+    from bndm_tpu_torch.parallel.distributed import barrier
+    from bndm_tpu_torch.parallel.mesh import data_shard, replicate, run_mesh
     from bndm_tpu_torch.train.pixel import PixelTrainer
     from bndm_tpu_torch.utils.logging import (MetricLogger, save_loss_curve,
                                               save_sched_param_curves)
 
     torch.manual_seed(opt.seed)  # the model's random init
     model, tcfg, L, out_dir = build(opt, device)
+    main = is_main_process()
     os.makedirs(out_dir, exist_ok=True)
-    print("output_folder:", out_dir)
+    if main:
+        print("output_folder:", out_dir)
 
     suffix = "_train" if opt.is_conditional else ""
     ds = ImageFolderDataset(os.path.join(opt.data_root, opt.dataset + suffix), opt.res,
                             random_flip=True, seed=opt.seed)
-    # one host: the whole batch is this process's shard (0 of 1)
-    loader = BatchLoader(ds, opt.batch_size, seed=opt.seed)
-    trainer = PixelTrainer(model.train(), tcfg, L, seed=opt.seed)
+    # each rank loads its block of the global batch (the whole of it alone)
+    mesh = run_mesh(opt.batch_size)
+    shard_index, shard_count = data_shard(mesh)
+    loader = BatchLoader(ds, opt.batch_size // shard_count, seed=opt.seed,
+                         shard_index=shard_index, shard_count=shard_count)
+    trainer = PixelTrainer(model.train(), tcfg, L, seed=opt.seed, mesh=mesh)
 
     mgr = CheckpointManager(os.path.join(out_dir, "checkpoints"))
     start_step = 0
@@ -231,7 +234,8 @@ def run_train(opt, device):
                 print("resumed weights only (reference-style, model.npz or torch model.ckpt)")
             except FileNotFoundError:
                 pass
-    logger = MetricLogger(os.path.join(out_dir, "logs"))
+    replicate(mesh, trainer.state)  # every rank starts from rank 0's state
+    logger = MetricLogger(os.path.join(out_dir, "logs")) if main else None
 
     losses = []
     sp_hist = [[], [], []]
@@ -254,27 +258,31 @@ def run_train(opt, device):
         losses.extend(float(v) for v in fetched[:, 0])
         for j in range(3):
             sp_hist[j].extend(float(v) for v in fetched[:, 1 + j])
-        for off, row in enumerate(fetched):
-            logger.log({"loss": row[0]}, step - len(fetched) + off)
-        tau, s, e = fetched[-1, 1:]
-        print(f"epoch {epoch}: mean loss {np.mean(losses[-max(len(loader), 1):]):.2f} "
-              f"sched_params tau={tau:.4f} s={s:.4f} e={e:.4f} "
-              f"({step} steps, {time.time() - t0:.0f}s)")
-        np.savetxt(os.path.join(out_dir, "losses.txt"), np.asarray(losses))
-        np.savetxt(os.path.join(out_dir, "scheduler_params.txt"),
-                   trainer.state.sched_params.detach().cpu().numpy())
-        save_loss_curve(losses, os.path.join(out_dir, "losses.png"))
-        save_sched_param_curves(*sp_hist, os.path.join(out_dir, "scheduler_params.png"))
-        save_params(os.path.join(out_dir, "model.npz"), flax_from_state_dict(model.state_dict()))
-        mgr.save(step, trainer.state)
-        if opt.export_reference_ckpt:
-            # the reference's torch state_dict at its path and format
-            export_torch_ckpt(model, os.path.join(out_dir, "model.ckpt"))
+        if main:  # rank 0 writes; every rank waits for it below
+            for off, row in enumerate(fetched):
+                logger.log({"loss": row[0]}, step - len(fetched) + off)
+            tau, s, e = fetched[-1, 1:]
+            print(f"epoch {epoch}: mean loss {np.mean(losses[-max(len(loader), 1):]):.2f} "
+                  f"sched_params tau={tau:.4f} s={s:.4f} e={e:.4f} "
+                  f"({step} steps, {time.time() - t0:.0f}s)")
+            np.savetxt(os.path.join(out_dir, "losses.txt"), np.asarray(losses))
+            np.savetxt(os.path.join(out_dir, "scheduler_params.txt"),
+                       trainer.state.sched_params.detach().cpu().numpy())
+            save_loss_curve(losses, os.path.join(out_dir, "losses.png"))
+            save_sched_param_curves(*sp_hist, os.path.join(out_dir, "scheduler_params.png"))
+            save_params(os.path.join(out_dir, "model.npz"),
+                        flax_from_state_dict(model.state_dict()))
+            mgr.save(step, trainer.state)
+            if opt.export_reference_ckpt:
+                # the reference's torch state_dict at its path and format
+                export_torch_ckpt(model, os.path.join(out_dir, "model.ckpt"))
+        barrier()
         if opt.max_steps and step >= opt.max_steps:
             break
     mgr.wait()
     mgr.close()
-    logger.close()
+    if main:
+        logger.close()
     return out_dir
 
 
@@ -318,9 +326,10 @@ def _serving(opt, device, cfg, out_dir, sched, calib_inputs, gn_carry):
 
 
 def run_test(opt, device):
-    from bndm_tpu_torch.cli.common import (AsyncImageWriter, make_generator,
-                                           noise_folder_name, save_image_grid,
+    from bndm_tpu_torch.cli.common import (AsyncImageWriter, is_main_process, make_generator,
+                                           noise_folder_name, rows_of, save_image_grid,
                                            synchronize)
+    from bndm_tpu_torch.parallel.mesh import run_mesh
     from bndm_tpu_torch.samplers.iadb import (sample_iadb, sample_iadb_cached,
                                               sample_iadb_microbatched)
 
@@ -351,8 +360,12 @@ def run_test(opt, device):
         "celeba_res128": [10], "church_res64": [4, 23, 32, 36],
     }.get(opt.dataset)
 
+    # each rank denoises its block of every batch that divides across the
+    # ranks; rank 0 gathers the blocks and writes
+    mesh = run_mesh()
+    main = is_main_process()
     # gallery mode writes every sample: encode PNGs on a background thread
-    writer = AsyncImageWriter() if opt.save_all_samples else None
+    writer = AsyncImageWriter() if opt.save_all_samples and main else None
     wall_t0 = time.time()
 
     for i in range(nb_batches):
@@ -373,7 +386,7 @@ def run_test(opt, device):
             x0 = torch.randn((bs, 3, opt.res, opt.res), generator=make_generator(device, opt.seed, i),
                              device=device, dtype=torch.float32)
 
-        if opt.save_noise:
+        if opt.save_noise and main:
             np.savez_compressed(
                 os.path.join(out_dir, fname, "noise", f"noise_batch{bs}_idx{i:05d}.npz"),
                 noise=x0.cpu().numpy())
@@ -383,6 +396,7 @@ def run_test(opt, device):
             x0 = x0[0:1]
             bs = 1
 
+        x0, gather = rows_of(mesh, x0)
         # a batch above the microbatch runs microbatch by microbatch, never
         # as one batch; a ragged last batch is padded with zero rows (samples
         # are independent) and cut back
@@ -414,7 +428,11 @@ def run_test(opt, device):
         else:
             sample, frames = _run()
         times.append(time.time() - t0)
-
+        # rank 0's block starts at the batch's row 0: its frames are the batch's
+        sample = gather(sample)
+        cnt += bs
+        if not main:
+            continue
         to_save = sample if opt.save_all_samples else sample[:1]
         img_path = os.path.join(out_dir, fname, "images", f"{i:05d}_{{0}}.png")
         if writer is not None:
@@ -424,8 +442,7 @@ def run_test(opt, device):
         for j, fr in enumerate(frames if frames is not None else ()):
             save_image_grid(fr, os.path.join(
                 out_dir, fname, "seqs",
-                f"{noise_folder_name(opt.noise_type)}_img{cnt:05d}_step{j}_{{0}}.png"))
-        cnt += bs
+                f"{noise_folder_name(opt.noise_type)}_img{cnt - bs:05d}_step{j}_{{0}}.png"))
         print(f"batch {i}: {bs} samples in {times[-1]:.2f}s "
               f"({bs/times[-1]:.1f} samples/s)")
     if writer is not None:
@@ -437,7 +454,7 @@ def run_test(opt, device):
         if written:
             print(f"end-to-end gallery throughput incl. I/O: "
                   f"{written / wall:.2f} samples/s over {wall:.1f}s wall")
-    if times:
+    if times and main:
         print("mean batch sampling time (excl. first):",
               np.mean(times[1:]) if len(times) > 1 else times[0])
     return out_dir
@@ -451,7 +468,7 @@ def run_superres_test(opt, device):
     but for ``--gn_carry``, which this mode leaves out as the JAX CLI does
     (with only that CLI's check of ``--static_gn`` here); each request is
     one image, so --microbatch never splits one."""
-    from bndm_tpu_torch.cli.common import (make_generator, noise_folder_name,
+    from bndm_tpu_torch.cli.common import (is_main_process, make_generator, noise_folder_name,
                                            save_image_grid, synchronize)
     from bndm_tpu_torch.data.imagefolder import ImageFolderDataset
     from bndm_tpu_torch.ops.noise import get_noise
@@ -517,6 +534,8 @@ def run_superres_test(opt, device):
         agg["psnr"] += float(psnr(s01, x01)[0])
         agg["l2"] += float(torch.sum((sample - x1) ** 2))
         agg["l1"] += float(torch.sum(torch.abs(sample - x1)))
+        if not is_main_process():  # one image a request: every rank runs it, rank 0 writes
+            continue
         save_image_grid(sample, os.path.join(
             out_dir, fname, "images", f"image_{noise_folder_name(opt.noise_type)}_{i:05d}_{{0}}.png"))
         save_image_grid(x_c, os.path.join(out_dir, fname, "lowres", f"lowres_{i:05d}_{{0}}.png"))
@@ -528,11 +547,10 @@ def run_superres_test(opt, device):
 
 
 def main(argv=None):
-    from bndm_tpu_torch.cli.common import disable_tf32, resolve_device
+    from bndm_tpu_torch.cli.common import disable_tf32, resolve_device, start_distributed
 
     opt = parse_args(argv)
-    _check_supported(opt)
-    device = resolve_device(opt.device)
+    device = start_distributed(opt, resolve_device(opt.device))
     disable_tf32()
     np.random.seed(opt.seed)
     if opt.train_or_test == "train":

@@ -8,8 +8,10 @@ launches K1 at 256^2 pixels and K2 at 512^2), sample with the IADB chain
 (plain, or the serving tiers: ``--conv_int8``/``--int8_mode``,
 ``--static_gn``, ``--attn_softmax_dtype``, ``--cache_interval``) and
 VAE-decode in chunks of ``--decode_microbatch``. It runs on CUDA unless
-``--device=cpu`` is given, and raises when CUDA is missing; the multi-host
-flags raise ``NotImplementedError``. The VAE is random-init unless
+``--device=cpu`` is given, and raises when CUDA is missing. The multi-host
+flags run it data parallel (each rank trains on its rows of the global
+batch, or samples and decodes its block of each batch; rank 0 writes and
+builds the latent cache). The VAE is random-init unless
 ``--vae_params`` names converted weights (the published ``sd-vae-ft-mse``
 weights are a download, not in the repository).
 
@@ -121,7 +123,10 @@ def run_train(args, device):
     from bndm_tpu_torch.data.latent_cache import LatentCacheDataset
     from bndm_tpu_torch.models.convert import (export_pipeline_tree, flax_from_state_dict,
                                                iadb_scheduler_config)
+    from bndm_tpu_torch.cli.common import is_main_process
     from bndm_tpu_torch.models.unet2d import UNet2D
+    from bndm_tpu_torch.parallel.distributed import barrier
+    from bndm_tpu_torch.parallel.mesh import data_shard, run_mesh
     from bndm_tpu_torch.train.latent import LatentTrainConfig, make_latent_train_step
     from bndm_tpu_torch.train.schedules_lr import hf_adamw
 
@@ -129,8 +134,13 @@ def run_train(args, device):
     os.makedirs(out_dir, exist_ok=True)
     out_channels = head_channels(args)
     vae = get_vae(args, device)
+    if is_main_process():  # rank 0 builds the cache; the others find it built
+        build_latent_cache(args, vae, device)
+    barrier()
     ds = LatentCacheDataset(build_latent_cache(args, vae, device))
     del vae  # training reads the cache only
+    mesh = run_mesh(args.train_batch_size)
+    shard_index, shard_count = data_shard(mesh)
     torch.manual_seed(args.seed)  # the model's random init
     model = UNet2D(latent_unet_config(args, out_channels), device=device)
     L = torch.from_numpy(load_L_for(args.noise_type, args.bluenoise_dir)).to(device)
@@ -139,7 +149,8 @@ def run_train(args, device):
         ddpm_num_steps=args.ddpm_num_steps, noise_type=args.noise_type,
         out_channels=out_channels, use_ema=args.use_ema, ema_inv_gamma=args.ema_inv_gamma,
         ema_power=args.ema_power, ema_max_decay=args.ema_max_decay)
-    train_step, init_state = make_latent_train_step(cfg, L, hf_adamw(args, nb * args.num_epochs))
+    train_step, init_state = make_latent_train_step(cfg, L, hf_adamw(args, nb * args.num_epochs),
+                                                    mesh)
     state = init_state(model.train())
     lat_res = args.resolution // 8
 
@@ -155,14 +166,18 @@ def run_train(args, device):
                              pipeline_class="IADBPipeline")
 
     hf_train_loop(args, state, train_step,
-                  lambda epoch: ds.batches(args.train_batch_size, seed=(args.seed, epoch)),
-                  out_dir, save_eval, device=device, steps_per_epoch=nb, loss_fmt=".2f")
+                  lambda epoch: ds.batches(args.train_batch_size // shard_count,
+                                           seed=(args.seed, epoch), shard_index=shard_index,
+                                           shard_count=shard_count),
+                  out_dir, save_eval, device=device, steps_per_epoch=nb, loss_fmt=".2f",
+                  mesh=mesh)
     return out_dir
 
 
 def run_test(args, device):
-    from bndm_tpu_torch.cli.common import (load_tree_unet_params, save_image_grid,
-                                           serving_relax_kw, synchronize)
+    from bndm_tpu_torch.cli.common import (is_main_process, load_tree_unet_params, rows_of,
+                                           save_image_grid, serving_relax_kw, synchronize)
+    from bndm_tpu_torch.parallel.mesh import run_mesh
     from bndm_tpu_torch.models.vae import make_decoder
     from bndm_tpu_torch.ops.int8 import calibrate_sampling
     from bndm_tpu_torch.samplers.iadb import sample_iadb, sample_iadb_cached
@@ -209,6 +224,10 @@ def run_test(args, device):
                  "gaussianRN": "iadb_gwn2grn"}[args.noise_type]
     num_batch = max(args.test_samples // args.eval_batch_size, 1)
     cnt = 0
+    # each rank samples and decodes its block of every batch that divides;
+    # rank 0 writes
+    mesh = run_mesh()
+    main = is_main_process()
     for i in range(num_batch):
         # the global numpy stream (seeded by main), as the JAX CLI draws it
         noise = np.random.randn(args.eval_batch_size, 4, lat_res, lat_res).astype(np.float32)
@@ -220,6 +239,8 @@ def run_test(args, device):
             else:
                 continue
         x0 = torch.from_numpy(noise).to(device)
+        bs = x0.shape[0]
+        x0, gather = rows_of(mesh, x0)
 
         def _run():
             if cached:
@@ -241,20 +262,23 @@ def run_test(args, device):
         else:
             imgs = _run()
         dt = time.time() - t0
-        print(f"batch {i}: {x0.shape[0]} samples in {dt:.2f}s ({x0.shape[0] / dt:.2f} samples/s)")
-        save_image_grid(imgs, os.path.join(out_dir, "images", f"{save_name}_{cnt:05d}_{{0}}.png"))
-        cnt += x0.shape[0]
+        imgs = gather(imgs)
+        cnt += bs
+        if not main:
+            continue
+        print(f"batch {i}: {bs} samples in {dt:.2f}s ({bs / dt:.2f} samples/s)")
+        save_image_grid(imgs, os.path.join(out_dir, "images",
+                                           f"{save_name}_{cnt - bs:05d}_{{0}}.png"))
     print("Done.")
     return out_dir
 
 
 def main(argv=None):
-    from bndm_tpu_torch.cli.common import disable_tf32, resolve_device
-    from bndm_tpu_torch.cli.hf_args import check_supported, parse_args
+    from bndm_tpu_torch.cli.common import disable_tf32, resolve_device, start_distributed
+    from bndm_tpu_torch.cli.hf_args import parse_args
 
     args = parse_args(argv)
-    check_supported(args)
-    device = resolve_device(args.device)
+    device = start_distributed(args, resolve_device(args.device))
     disable_tf32()
     np.random.seed(args.seed)
     if args.train_or_test == "train":

@@ -4,9 +4,10 @@ Counterpart of ``bndm_tpu/data/imagefolder.py``: the reference's torchvision
 transform (Resize(shorter side) -> CenterCrop -> optional horizontal flip ->
 ToTensor) written with PIL and numpy, and ``BatchLoader``, whose per-epoch
 shuffle, flips and crops draw the same numbers as the JAX package's, so both
-load the same batches. Outputs are float32 CHW (NCHW batches) in [0, 1]. The
-JAX package's native C++ transform comes to the port later (ROADMAP.md,
-queue 1 item 6).
+load the same batches. Outputs are float32 CHW (NCHW batches) in [0, 1].
+The transform runs in the native C++ kernel (``bndm_tpu_torch/native``, the
+JAX package's fastimage.cpp) where g++ could build it, else through PIL;
+``native.PATH_COUNTS`` records which path each image took.
 """
 
 from __future__ import annotations
@@ -54,6 +55,16 @@ def _load_and_transform(path, res, hflip, crop_u=None):
         top = int(crop_u[0] * (nh - res + 1))
         left = int(crop_u[1] * (nw - res + 1))
 
+    # the native fused resize + crop + flip + scale + transpose
+    # (native/fastimage.cpp); PIL and numpy below where it is not built
+    from bndm_tpu_torch import native
+
+    out = native.fast_transform(np.asarray(img, np.uint8), res, hflip,
+                                crop_top=top, crop_left=left)
+    if out is not None:
+        native.count_path("native")
+        return out
+    native.count_path("pil")
     img = img.resize((nw, nh), Image.BILINEAR)
     if top < 0:
         left = (nw - res) // 2
@@ -85,9 +96,9 @@ class ImageFolderDataset:
 class BatchLoader:
     """Shuffled, drop-last batch iterator with threaded decode + prefetch.
 
-    ``shard_index / shard_count``: per-host sharding for multi-host data
-    parallelism (each host loads its slice of the global batch); the port
-    runs on one host, at (0, 1).
+    ``shard_index / shard_count``: per-rank sharding for data parallelism
+    (each rank loads its block of the global batch, ``idx[shard::count]``
+    of the epoch's shuffle, as the JAX loader does).
     """
 
     def __init__(self, dataset: ImageFolderDataset, batch_size, shuffle=True,
@@ -118,7 +129,9 @@ class BatchLoader:
         idx = np.arange(len(self.ds))
         if self.shuffle:
             rng.shuffle(idx)
-        idx = idx[self.shard_index:: self.shard_count]
+        # every shard takes len(ds) // shard_count items, so that the ranks
+        # of a data-parallel run step the same number of times
+        idx = idx[self.shard_index:: self.shard_count][:len(self.ds) // self.shard_count]
         nb = len(idx) // self.batch_size if self.drop_last else -(-len(idx) // self.batch_size)
         flips = rng.random(len(self.ds)) < 0.5 if self.ds.random_flip else np.zeros(len(self.ds), bool)
         # per-item (u_top, u_left) random-crop draws, deterministic per epoch

@@ -55,7 +55,7 @@ class LatentCacheDataset:
         idx = np.arange(len(self))
         if shuffle:
             rng.shuffle(idx)
-        idx = idx[shard_index::shard_count]
+        idx = idx[shard_index::shard_count][:len(self) // shard_count]  # equal per shard
         nb = len(idx) // batch_size if drop_last else -(-len(idx) // batch_size)
         for b in range(nb):
             sel = idx[b * batch_size:(b + 1) * batch_size]

@@ -244,6 +244,22 @@ def load_state_dict_file(path):
     return canonical_state_dict(load_torch_checkpoint(path))
 
 
+def load_reference_unet(path):
+    """Reference UNet weights (``.ckpt`` or ``.safetensors``) as a canonical
+    torch state_dict, the counterpart of the JAX package's
+    ``load_reference_unet`` (which returns flax params)."""
+    return load_state_dict_file(path)
+
+
+def export_reference_unet(model_or_state_dict, path):
+    """The weights (a module, or its state_dict) as a diffusers-style fp32
+    ``.safetensors`` state dict on disk."""
+    sd = model_or_state_dict.state_dict() if isinstance(model_or_state_dict, torch.nn.Module) \
+        else model_or_state_dict
+    save_safetensors({k: v.detach().float().cpu() for k, v in canonical_state_dict(sd).items()},
+                     path, metadata={"format": "pt"})
+
+
 # ------------------ diffusers ``save_pretrained`` trees ----------------------
 
 _DIFFUSERS_VERSION = "0.27.0"

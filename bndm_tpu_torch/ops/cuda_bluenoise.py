@@ -22,6 +22,7 @@ one to the other: a CUDA call launches the kernel or raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -204,7 +205,8 @@ def tri_matmul(L, W):
     :data:`SKINNY_MAX_M` takes the skinny design, wider M the wide one; both
     give the same bits run to run. CPU tensors go to
     :func:`tri_matmul_plain`; ``tri_matmul.launches`` counts calls on the
-    card (one each, whatever kernels the call launches).
+    card (one each, whatever kernels the call launches) and
+    ``tri_matmul.launches_by_m`` the same calls by M.
     """
     _check(L, W)
     if L.device.type == "cpu":
@@ -213,10 +215,12 @@ def tri_matmul(L, W):
         raise ValueError(f"tri_matmul runs on cuda or cpu, not {L.device}")
     out = _launch(L, W, "skinny" if W.shape[1] <= SKINNY_MAX_M else "wide")
     tri_matmul.launches += 1
+    tri_matmul.launches_by_m[W.shape[1]] += 1
     return out
 
 
 tri_matmul.launches = 0
+tri_matmul.launches_by_m = collections.Counter()
 
 
 def apply_L(L, wf):

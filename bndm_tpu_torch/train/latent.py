@@ -7,7 +7,9 @@ linear alpha = gamma = t/T, draws the noise through the noise engine on the
 (B, 4, 32|64, 32|64) latents (on CUDA K1 at res 32, K2 at res 64), blends
 as the IADB scheduler's ``add_noise``, takes the midpoint-split two-head
 BNDM loss (or the IADB loss), then AdamW + HF LR schedule + grad-clip 1.0
-and the EMA.
+and the EMA. Data parallel (a ``mesh``) as the pixel step: t and the noise
+drawn for the global batch (K2 at the global M), each rank's rows' share of
+the summed loss, the gradient summed over the ranks.
 """
 
 from __future__ import annotations
@@ -18,10 +20,11 @@ import torch
 
 from bndm_tpu_torch.cli.common import make_generator
 from bndm_tpu_torch.ops.noise import get_noise
-from bndm_tpu_torch.train.ddim import HFTrainState, apply_update
+from bndm_tpu_torch.parallel.mesh import data_shard, local_rows, wrap_ddp
+from bndm_tpu_torch.train.ddim import HFTrainState, apply_update, backward_global
 from bndm_tpu_torch.train.ema import ema_init
 from bndm_tpu_torch.train.losses import antithetic_timesteps, bndm_loss, iadb_loss
-from bndm_tpu_torch.train.pixel import draw_noise
+from bndm_tpu_torch.train.pixel import draw_noise, global_like
 
 # the noise engine: K2 for a fresh 64^2 draw on CUDA (ops/noise.py::takes_fused),
 # the unfused path (K1 on CUDA) elsewhere; the JAX package's latent step keeps
@@ -46,21 +49,27 @@ class LatentTrainConfig:
                 and self.out_channels == 2 * self.latent_channels)
 
 
-def make_latent_train_step(cfg: LatentTrainConfig, L, make_optimizer):
+def make_latent_train_step(cfg: LatentTrainConfig, L, make_optimizer, mesh=None):
     """``train_step(state, latents, key) -> {"loss"}`` and
     ``init_state(model)``; ``L`` on the model's device,
     ``make_optimizer(params) -> HFAdamW``. t comes from a CPU generator of
-    ``key``, the noise from ``train/pixel.py::draw_noise`` of ``key``."""
+    ``key``, the noise from ``train/pixel.py::draw_noise`` of ``key``, both
+    for the global batch (``latents`` are this rank's rows of it)."""
     correlated = cfg.noise_type in ("gaussianBN", "gaussianRN", "GBN")
     T = cfg.ddpm_num_steps
+    count = data_shard(mesh)[1]
 
     def loss_fn(model, clean, t, noise):
-        """``noise``: K2's seeds (a tuple) or the white draw (a tensor)."""
+        """This rank's share of the summed loss over its rows ``clean``;
+        ``t`` and ``noise`` (K2's seeds, a tuple, or the white draw, a
+        tensor) are the global batch's."""
+        draw = {"seeds": noise} if isinstance(noise, tuple) else {"white": noise}
+        r = get_noise(global_like(clean, count), L, t / T, noise_type=cfg.noise_type,
+                      train=True, inplace=False, engine=ENGINE, **draw)
+        r = type(r)(*local_rows(mesh, *r))
+        (t,) = local_rows(mesh, t)
         alpha = t / T  # linear, hardcoded in the reference
         gamma = t / T
-        draw = {"seeds": noise} if isinstance(noise, tuple) else {"white": noise}
-        r = get_noise(clean, L, gamma, noise_type=cfg.noise_type, train=True, inplace=False,
-                      engine=ENGINE, **draw)
         a = alpha.reshape(-1, 1, 1, 1)
         noisy = (1.0 - a) * clean + a * r.noise  # IADBScheduler.add_noise
         d = model(noisy, alpha)
@@ -73,18 +82,18 @@ def make_latent_train_step(cfg: LatentTrainConfig, L, make_optimizer):
 
     def train_step(state: HFTrainState, latents, key):
         clean = latents.to(L.device, torch.float32)
-        t = antithetic_timesteps(make_generator("cpu", *key), clean.shape[0], T)
+        like = global_like(clean, count)
+        t = antithetic_timesteps(make_generator("cpu", *key), like.shape[0], T)
         t = t.to(L.device, torch.float32)
-        noise = draw_noise(clean, key, cfg.noise_type, ENGINE)
-        state.opt.zero_grad()
-        loss = loss_fn(state.model, clean, t, noise)
-        loss.backward()
+        noise = draw_noise(like, key, cfg.noise_type, ENGINE)
+        loss = backward_global(state, loss_fn, mesh, clean, t, noise)
         apply_update(state, cfg)
-        return {"loss": loss.detach()}
+        return {"loss": loss}
 
     def init_state(model):
         return HFTrainState(model=model, opt=make_optimizer(model.parameters()),
-                            ema=ema_init(model) if cfg.use_ema else None)
+                            ema=ema_init(model) if cfg.use_ema else None,
+                            forward=wrap_ddp(model, mesh))
 
     train_step.loss_fn = loss_fn
     return train_step, init_state

@@ -11,6 +11,15 @@ K3 (:class:`~bndm_tpu_torch.ops.cuda_bluenoise.FusedBlueNoise`).
 Parameters stay fp32; the modules compute in their configured dtype (bf16
 from the CLI). Randomness comes from a key, a tuple of ints such as
 (seed, step), the counterpart of a folded ``jax.random`` key.
+
+Data parallel (a ``mesh`` from ``bndm_tpu_torch/parallel``): each rank holds
+its block of rows of the global batch, draws t and the noise for the whole
+global batch from the key and keeps its rows (the antithetic pairs span the
+global batch; K2 runs at the global M and the rank keeps its columns), and
+backpropagates its rows' share of the summed loss. The model's gradient is
+summed over the ranks by ``DistributedDataParallel``, the schedule's by one
+all-reduce, before the clip: the step is the global batch's, as JAX's
+sharded step is.
 """
 
 from __future__ import annotations
@@ -24,6 +33,8 @@ from torch.utils.checkpoint import checkpoint
 from bndm_tpu_torch.cli.common import make_generator
 from bndm_tpu_torch.ops.noise import draw_seeds, fresh_shape, get_noise, takes_fused
 from bndm_tpu_torch.ops.schedules import alpha_schedule, gamma_param_ranges, gamma_schedule
+from bndm_tpu_torch.parallel.mesh import (all_reduce_sum_, data_shard, gather_batch, local_rows,
+                                          wrap_ddp)
 from bndm_tpu_torch.train.losses import antithetic_timesteps, bndm_loss, iadb_loss, remap_batch
 from bndm_tpu_torch.utils.image import superres_condition
 
@@ -66,13 +77,16 @@ class TrainConfig:
 
 @dataclasses.dataclass
 class TrainState:
-    """The whole train state; the step updates it in place."""
+    """The whole train state; the step updates it in place. ``forward`` is
+    the module the step calls: the model itself, or its
+    ``DistributedDataParallel`` wrapper (not part of the state_dict)."""
 
     model: torch.nn.Module
     opt: torch.optim.Optimizer
     sched_params: torch.Tensor  # (3,) = (tau, s, e), fp32, a leaf with grad
     sched_opt: torch.optim.Optimizer
     step: int = 0
+    forward: Optional[torch.nn.Module] = None
 
     def state_dict(self):
         return {"model": self.model.state_dict(), "opt": self.opt.state_dict(),
@@ -120,12 +134,22 @@ def init_sched_params(generator, cfg: TrainConfig, device=None):
     return (lo + (hi - lo) * u).to(device)
 
 
+def global_like(x, count):
+    """A view of ``x``'s shape with ``count`` times its rows (no memory of
+    its own): what the noise engine draws for the global batch reads only
+    its shape, device and dtype. ``x`` itself for one rank."""
+    if count == 1:
+        return x
+    return x[:1].expand(x.shape[0] * count, *x.shape[1:])
+
+
 def draw_noise(x, key, noise_type, engine):
     """A train step's fresh noise draw for data ``x``, from ``key``: K2's
     two host-int seeds (a tuple) where :func:`takes_fused` says the fused
     path runs, else the white noise of :func:`fresh_shape` on x's device
     (uniform for ``uniform``). ``get_noise`` takes either as ``seeds=`` or
-    ``white=``."""
+    ``white=``. A data-parallel step passes the global batch's shape
+    (:func:`global_like`)."""
     if takes_fused(x, noise_type, False, engine):
         return draw_seeds(make_generator("cpu", *key, 1))
     shape = fresh_shape(x.shape, noise_type)
@@ -135,16 +159,17 @@ def draw_noise(x, key, noise_type, engine):
     return torch.randn(shape, generator=gen, device=x.device)
 
 
-def make_train_step(cfg: TrainConfig, L):
+def make_train_step(cfg: TrainConfig, L, mesh=None):
     """Build the train step: ``train_step(state, batch01, key) -> metrics``.
 
     ``batch01``: images in [0, 1] on the model's device (the loader's
-    output); ``x1 = batch01*2 - 1`` happens here. ``key`` is a tuple of ints
-    (e.g. (seed, step)) from which the step draws t and its noise on the
-    host: K2's two seeds where the fused path runs, else white noise on the
-    device. The step updates ``state`` in place; ``metrics`` are device
-    tensors, read by the caller when it wants them. Returns
-    ``(train_step, init_state)``.
+    output; with a ``mesh``, this rank's block of the global batch);
+    ``x1 = batch01*2 - 1`` happens here. ``key`` is a tuple of ints (e.g.
+    (seed, step)) from which the step draws t and its noise for the global
+    batch on the host: K2's two seeds where the fused path runs, else white
+    noise on the device. The step updates ``state`` in place; ``metrics``
+    are device tensors (the global loss), read by the caller when it wants
+    them. Returns ``(train_step, init_state)``.
     """
     ranges = gamma_param_ranges(cfg.scheduler_gamma, cfg.optimize_scheduler_param,
                                 cfg.gamma_defaults)
@@ -152,17 +177,26 @@ def make_train_step(cfg: TrainConfig, L):
     clamp_hi = torch.tensor([r[1] for r in ranges], dtype=torch.float32, device=L.device)
     correlated = cfg.noise_type in ("gaussianBN", "gaussianRN", "GBN")
 
+    count = data_shard(mesh)[1]
+
     def loss_fn(model, sched_params, x1, t, noise):
-        """The step's loss. ``noise`` is its draw: K2's two host-int seeds
-        (a tuple) or the white noise the unfused path would draw (a tensor
-        of ``fresh_shape``)."""
-        alpha = alpha_schedule(t, cfg.nb_steps, cfg.scheduler_alpha, cfg.alpha_param)
-        gamma = gamma_schedule(t, cfg.nb_steps, cfg.scheduler_gamma, sched_params)
+        """This rank's share of the step's loss: the sum over its rows
+        ``x1`` of the global batch. ``t`` (B,) and ``noise`` are the global
+        batch's draw: K2's two host-int seeds (a tuple) or the white noise
+        the unfused path would draw (a tensor of ``fresh_shape``)."""
+        alpha_all = alpha_schedule(t, cfg.nb_steps, cfg.scheduler_alpha, cfg.alpha_param)
+        gamma_all = gamma_schedule(t, cfg.nb_steps, cfg.scheduler_gamma, sched_params)
         draw = {"seeds": noise} if isinstance(noise, tuple) else {"white": noise}
-        r = get_noise(x1, L, gamma, noise_type=cfg.noise_type, train=True, inplace=False,
-                      engine=cfg.noise_engine, **draw)
+        r_all = get_noise(global_like(x1, count), L, gamma_all, noise_type=cfg.noise_type,
+                          train=True, inplace=False, engine=cfg.noise_engine, **draw)
+        r = type(r_all)(*local_rows(mesh, *r_all))
+        alpha, gamma, t = local_rows(mesh, alpha_all, gamma_all, t)
         x0 = r.noise
-        x1_paired = x1[remap_batch(x0, x1)] if cfg.remap else x1
+        if cfg.remap:  # the batch-OT pairing spans the global batch
+            x1_all = gather_batch(mesh, x1)
+            x1_paired = local_rows(mesh, x1_all[remap_batch(r_all.noise, x1_all)])[0]
+        else:
+            x1_paired = x1
         a = alpha.reshape(-1, 1, 1, 1)
         x_alpha = a * x0 + (1.0 - a) * x1_paired  # x1 = data, x0 = noise
         inp = x_alpha
@@ -179,22 +213,41 @@ def make_train_step(cfg: TrainConfig, L):
                              alpha, alpha_prev, gamma, gamma_prev, cfg.two_head)
         return iadb_loss(d, x1_paired, x0)
 
-    def train_step(state: TrainState, batch01, key):
-        x1 = batch01.to(L.device, torch.float32) * 2.0 - 1.0
-        t = antithetic_timesteps(make_generator("cpu", *key), x1.shape[0], cfg.nb_steps)
-        t = t.to(L.device, torch.float32)
-        noise = draw_noise(x1, key, cfg.noise_type, cfg.noise_engine)
+    def compute_grads(state: TrainState, x1, t, noise):
+        """Backpropagate this rank's share of the loss into ``.grad`` (DDP
+        sums the model's gradient over the ranks), then sum the schedule's
+        gradient and the loss over the ranks. Returns the global loss."""
         state.opt.zero_grad(set_to_none=True)
         state.sched_opt.zero_grad(set_to_none=True)
-        loss = loss_fn(state.model, state.sched_params, x1, t, noise)
+        loss = loss_fn(state.forward or state.model, state.sched_params, x1, t, noise)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            if state.sched_params.grad is None:  # a schedule without (tau, s, e)
+                state.sched_params.grad = torch.zeros_like(state.sched_params)
+            all_reduce_sum_(mesh, [state.sched_params.grad, loss])
+        return loss
+
+    def draw(x1, key):
+        """t (B,) and the noise draw for the global batch of which ``x1``
+        holds this rank's rows, from ``key``."""
+        like = global_like(x1, count)
+        t = antithetic_timesteps(make_generator("cpu", *key), like.shape[0], cfg.nb_steps)
+        return t.to(L.device, torch.float32), draw_noise(like, key, cfg.noise_type,
+                                                         cfg.noise_engine)
+
+    def train_step(state: TrainState, batch01, key):
+        x1 = batch01.to(L.device, torch.float32) * 2.0 - 1.0
+        t, noise = draw(x1, key)
+        loss = compute_grads(state, x1, t, noise)
         apply_gradients(state)
         sp = state.sched_params.detach().clone()
-        return {"loss": loss.detach(), "sched_tau": sp[0], "sched_s": sp[1], "sched_e": sp[2]}
+        return {"loss": loss, "sched_tau": sp[0], "sched_s": sp[1], "sched_e": sp[2]}
 
     def apply_gradients(state: TrainState):
-        """Both optimizers on the gradients in ``.grad``: the clip (model
-        only), the model's step, the schedule's step, then the clamp."""
+        """Both optimizers on the gradients in ``.grad`` (summed over the
+        ranks already): the clip (model only), the model's step, the
+        schedule's step, then the clamp."""
         if cfg.grad_clip is not None:
             grads = [p.grad for p in state.model.parameters() if p.grad is not None]
             clip_by_global_norm_(grads, cfg.grad_clip)
@@ -214,10 +267,13 @@ def make_train_step(cfg: TrainConfig, L):
             sched_params=sched_params,
             sched_opt=torch.optim.AdamW([sched_params], lr=cfg.sched_lr, eps=1e-8,
                                         weight_decay=WEIGHT_DECAY),
+            forward=wrap_ddp(model, mesh),
         )
 
     # exposed for tests (parity of the loss, its gradients and the update)
     train_step.loss_fn = loss_fn
+    train_step.draw = draw
+    train_step.compute_grads = compute_grads
     train_step.apply_gradients = apply_gradients
     return train_step, init_state
 
@@ -225,14 +281,15 @@ def make_train_step(cfg: TrainConfig, L):
 class PixelTrainer:
     """Convenience wrapper: model + config + L-matrix -> stateful trainer.
     The model's parameters are trained as they are (fp32); ``L`` moves to
-    the model's device."""
+    the model's device. With a ``mesh``, the trainer steps on this rank's
+    rows of each global batch."""
 
-    def __init__(self, model, cfg: TrainConfig, L, seed=0):
+    def __init__(self, model, cfg: TrainConfig, L, seed=0, mesh=None):
         self.model = model
         self.cfg = cfg
         device = next(model.parameters()).device
         self.L = torch.as_tensor(L, dtype=torch.float32).to(device).contiguous()
-        self.train_step, init_state = make_train_step(cfg, self.L)
+        self.train_step, init_state = make_train_step(cfg, self.L, mesh)
         self.state = init_state(model, make_generator("cpu", seed))
 
     def step(self, batch01, key):

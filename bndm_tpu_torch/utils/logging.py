@@ -48,7 +48,7 @@ class MetricLogger:
             self._tb.close()
 
 
-def _plot(series, path, size=(640, 480), margin=48):
+def plot_series(series, path, size=(640, 480), margin=48):
     """Draw each series of numbers as a polyline against its index."""
     from PIL import Image, ImageDraw
 
@@ -82,9 +82,9 @@ def _plot(series, path, size=(640, 480), margin=48):
 
 def save_loss_curve(losses, path):
     """losses.png: the loss of every step."""
-    _plot([losses], path)
+    plot_series([losses], path)
 
 
 def save_sched_param_curves(p0, p1, p2, path):
     """scheduler_params.png: tau, s and e of every step."""
-    _plot([p0, p1, p2], path)
+    plot_series([p0, p1, p2], path)

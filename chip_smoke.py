@@ -7,6 +7,8 @@
     python3 chip_smoke.py --tiers     # phases 1, 2 and 9b alone (the serving tiers)
     python3 chip_smoke.py --pipelines # phases 1, 2 and 12-14 alone (DDIM, latent)
     python3 chip_smoke.py --train     # phases 1, 2 and 10 alone (pixel training)
+    python3 chip_smoke.py --parallel  # phases 1, 2, 15 and 16 alone (data parallelism)
+    python3 chip_smoke.py --surfaces  # phases 1, 2 and 17-19 alone (figs, parity, demo)
 
 Drives the port's serving and training paths at full width with random
 seeded weights and holds every hand-written kernel against its plain
@@ -58,7 +60,8 @@ PyTorch version:
      UNet, batch 64) for 8 steps on 512 procedural images, then 12 steady
      steps (the last batch again, with no loader thread decoding beside
      them), then a resumed ninth step; K2 and K3 must run once per CLI
-     step and K1 not at all; one step traced (torch.profiler);
+     step and K1 not at all, and the loader must decode through the native
+     C++ transform; one step traced (torch.profiler);
  11. trace: one bf16 UNet forward of each served branch at its shape (the
      DDIM and latent ones too) and one bf16 VAE decode of 16 latents, its
      host-clock time beside the device's busy time and top kernels;
@@ -80,7 +83,28 @@ PyTorch version:
      scripts/training/latent_iadb_cat_res512.sh:6 at batch 64, not 256): 6
      train steps on 32 procedural images (the last traced), K2 once per
      step;
- 15. one JSON line {"kernels": [...]}, then the last line
+ 15. data parallelism at full width (phase_parallel): (a) the training CLI
+     (phase 10's flags, batch 64, 3 steps) as one NCCL rank through
+     --coordinator_address/--num_processes/--process_id, its losses and
+     weights the run without a process group's bit for bit; (b) two gloo
+     ranks sharing the card (NCCL refuses two ranks on one device), 32 rows
+     each, one fp32 step: the summed UNet gradient within 1e-5 x its norm of
+     one rank's step on the same batch, t and noise, (tau, s, e) within rtol
+     1e-3, K2 and K3 once on each rank; the all-reduce of a step's gradient timed
+     in both;
+ 16. the port's dry run (bndm_tpu_torch/dryrun.py) on 2 gloo ranks on the
+     card: the seven legs;
+ 17. the figure CLI at 100 realisations: its files, K1 four times at M = 3
+     and twice at M = 1200, the written spectra within TOL of the plain
+     version's on the same white noise; K1 at both M against its plain
+     version and timed against torch.matmul in alternating turns;
+ 18. parity_check on a full-width res-64 UNet from seeded weights written
+     as .safetensors and as model.ckpt: the probe on the card within 1e-3
+     of the CPU's, then the 250-step sample;
+ 19. the demo: the three full-width res-64 UNets from random init, 50
+     steps; its http server on an ephemeral port (GET the page and a frame,
+     POST /api/generate) and the static panel;
+ 20. one JSON line {"kernels": [...]}, then the last line
      {"ok": true, "device": {...}}.
 
 Every path is driven with the kernels' launch counts set to 0 just before
@@ -246,9 +270,12 @@ def _counted():
 
 
 def reset_launches():
-    """Set every kernel's launch count to 0 (just before a path is driven)."""
+    """Set every kernel's launch count to 0 (just before a path is driven),
+    K1's count by M too."""
     for fn in _counted().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_m"):
+            fn.launches_by_m.clear()
 
 
 def read_launches():
@@ -1165,22 +1192,27 @@ def trace_cached_step(torch, sd):
     return out
 
 
+# scripts/training/iadb_bn_cat_res64.sh:7 (gaussianBN, the two-head 113.7M UNet)
+TRAIN64 = ["--dataset=cat_res64", "--res=64", "--epochs=1", "--train_or_test=train",
+           "--lr=0.0001", "--grad_clip=1.0", "--noise_type=gaussianBN",
+           "--scheduler_gamma=sigmoid", "--scheduler_param=1000", "--out_channel=6",
+           "--device=cuda"]
+
+
 def phase_train(torch, work, bn_dir):
     """The training CLI at full width: 8 steps at batch 64, then a resumed
     ninth step, traced. Returns K2's launches and the step times."""
     import numpy as np
 
+    from bndm_tpu_torch import native
     from bndm_tpu_torch.cli.common import output_folder_name
     from bndm_tpu_torch.cli.iadb_bn import parse_args
     from bndm_tpu_torch.data.imagefolder import make_procedural_folder
 
     bs, steps = 64, 8
-    # scripts/training/iadb_bn_cat_res64.sh:7, one epoch of 512 images
-    argv = ["--dataset=cat_res64", "--res=64", f"--batch_size={bs}", "--epochs=1",
-            "--train_or_test=train", "--lr=0.0001", "--grad_clip=1.0",
-            "--noise_type=gaussianBN", "--scheduler_gamma=sigmoid", "--scheduler_param=1000",
-            "--out_channel=6", "--device=cuda", f"--data_root={work}/data",
-            f"--bluenoise_dir={bn_dir}"]
+    # one epoch of 512 images
+    argv = TRAIN64 + [f"--batch_size={bs}", f"--data_root={work}/data",
+                      f"--bluenoise_dir={bn_dir}"]
     make_procedural_folder(os.path.join(work, "data", "cat_res64"), n=bs * steps, res=64, seed=7)
     os.makedirs(os.path.join(work, "train"))
     with contextlib.chdir(os.path.join(work, "train")):
@@ -1188,9 +1220,11 @@ def phase_train(torch, work, bn_dir):
         record, last = [], {}
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
+        native.reset_counts()
         with watched_trainer(record, last=last):
             text = run_cli(argv + [f"--max_steps={steps}"])
         counts = read_launches()
+        decoded = dict(native.PATH_COUNTS)
         steady = _steady(torch, last, bs, "train")
         counts_k3 = counts["fused_bluenoise_grad"]
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -1205,6 +1239,8 @@ def phase_train(torch, work, bn_dir):
         check(counts["fused_bluenoise"] == steps, "K2 must launch once per train step")
         check(counts["fused_bluenoise_grad"] == steps, "K3 must run once per train step")
         check(counts["tri_matmul"] == 0, "K1 is not on the res-64 training path")
+        log(f"train: images decoded by path {decoded}")
+        check(decoded["native"] > 0, "the loader decoded no image through the native transform")
         check(losses.shape == (steps,) and bool(np.isfinite(losses).all()),
               "losses.txt must hold one finite loss per step")
         check(np.allclose(sched, [1000.0, 0.0, 3.0], rtol=0, atol=1e-6),
@@ -1632,10 +1668,384 @@ def phase_trace(torch):
     del vae
 
 
+def _allreduce_ms(torch, numel, reps=5):
+    """Median time (CUDA events) of one all-reduce of ``numel`` fp32 values
+    on the card over the joined process group: a step's gradient."""
+    import torch.distributed as dist
+
+    buf = torch.zeros(numel, device="cuda")
+    times = []
+    for _ in range(reps + 1):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        dist.all_reduce(buf)
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return median(times[1:])
+
+
+def phase_parallel(torch, work, bn_dir):
+    """15. Data parallelism at full width. (a) The pixel CLI's train mode
+    (TRAIN64, batch 64, 3 steps) as one NCCL rank through the launch flags,
+    against the same run without a process group: the same losses and
+    weights bit for bit (cuDNN held to deterministic algorithms in both).
+    (b) Two gloo ranks sharing the card (NCCL refuses two ranks on one
+    device), 32 rows each of one global batch, one step of the fp32 UNet
+    (K2 at the global M on each rank; the schedule at (0.2, 0, 3), whose
+    gradient is not zero, dryrun.py::grads_config), against this process
+    on the same batch, t and noise: the summed UNet and (tau, s, e)
+    gradients within 1e-5 x their norms of the same two 32-row blocks
+    stepped in turn (dryrun.py::split_grads); against one 64-row pass, the
+    UNet's within 1e-5 x its norm and the (tau, s, e) within rtol 1e-3, the
+    fp32 rounding of another partition, which the loss weight dgamma/dalpha
+    (dalpha = 1/T) scales: whole against split is read at T = 100, 1000 and
+    10000. The all-reduce of a step's gradient timed for both."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from bndm_tpu_torch.cli.common import load_L_for, output_folder_name
+    from bndm_tpu_torch.cli.iadb_bn import parse_args
+    from bndm_tpu_torch.data.imagefolder import ImageFolderDataset, make_procedural_folder
+    from bndm_tpu_torch.dryrun import free_port, grads_config, run_ranks, split_grads
+    from bndm_tpu_torch.models.unet2d import UNet2D, unet_config_for_res
+    from bndm_tpu_torch.parallel import shutdown
+    from bndm_tpu_torch.train import pixel
+
+    bs, steps = 64, 3
+    data = os.path.join(work, "data_par")
+    make_procedural_folder(os.path.join(data, "cat_res64"), n=bs * steps, res=64, seed=9)
+    argv = TRAIN64 + [f"--batch_size={bs}", f"--max_steps={steps}", f"--data_root={data}",
+                      f"--bluenoise_dir={bn_dir}"]
+    runs, wrapped, out = {}, [], {}
+    real_wrap = pixel.wrap_ddp
+
+    def watched_wrap(model, mesh):
+        ddp = real_wrap(model, mesh)
+        wrapped.append(type(ddp).__name__)
+        return ddp
+
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    pixel.wrap_ddp = watched_wrap
+    try:
+        for name, extra in (("alone", []),
+                            ("nccl1", [f"--coordinator_address=127.0.0.1:{free_port()}",
+                                       "--num_processes=1", "--process_id=0"])):
+            d = os.path.join(work, f"par_{name}")
+            os.makedirs(d)
+            with contextlib.chdir(d):
+                reset_launches()
+                run_cli(argv + extra)
+                counts = read_launches()
+                run = os.path.abspath(output_folder_name(parse_args(argv)))
+            with np.load(os.path.join(run, "model.npz")) as z:
+                weights = {k: z[k] for k in z.files}
+            runs[name] = (np.loadtxt(os.path.join(run, "losses.txt")), weights, counts)
+            if name == "nccl1":
+                check(dist.is_initialized() and dist.get_backend() == "nccl"
+                      and dist.get_world_size() == 1, "the launch flags joined no NCCL group")
+                numel = sum(v.size for v in weights.values())
+                out["nccl1_allreduce_ms"] = _allreduce_ms(torch, numel)
+                out["grad_mb"] = 4 * numel / 1e6
+                shutdown()
+    finally:
+        pixel.wrap_ddp = real_wrap
+        torch.backends.cudnn.deterministic = was
+        shutdown()
+    (la, wa, ca), (lb, wb, cb) = runs["alone"], runs["nccl1"]
+    log(f"parallel (a): losses alone {la.tolist()}, one NCCL rank {lb.tolist()}; the step's "
+        f"module {wrapped}; K2 launches {ca['fused_bluenoise']} and {cb['fused_bluenoise']}")
+    check(wrapped == ["UNet2D", "DistributedDataParallel"],
+          f"the one-rank run must train through DDP, the other without: {wrapped}")
+    check(ca["fused_bluenoise"] == cb["fused_bluenoise"] == steps,
+          "K2 must launch once per step in both runs")
+    check(np.array_equal(la, lb), "one NCCL rank's losses are not the run's bit for bit")
+    check(sorted(wa) == sorted(wb) and all(np.array_equal(wa[k], wb[k]) for k in wa),
+          "one NCCL rank's weights are not the run's bit for bit")
+    log(f"parallel (a): losses and all {len(wa)} weight arrays bit for bit; all-reduce of the "
+        f"step's gradient ({out['grad_mb']:.1f} MB fp32) on one NCCL rank "
+        f"{out['nccl1_allreduce_ms']:.4f} ms (median of 5, CUDA events)")
+
+    # (b) two gloo ranks on the card against one rank, one step of 64 rows
+    ds = ImageFolderDataset(os.path.join(data, "cat_res64"), 64, random_flip=False)
+    x1 = np.stack([ds.get(i) for i in range(bs)]) * 2.0 - 1.0
+    L = load_L_for("gaussianBN", bn_dir)
+    inputs, grads = os.path.join(work, "par_in.npz"), os.path.join(work, "par_out.npz")
+    np.savez(inputs, L=L, seed=3, x1=x1, key=np.array([0, 5]))
+    cfg, L_cuda = grads_config(True), torch.from_numpy(L).cuda()
+    torch.manual_seed(3)
+    model = UNet2D(unet_config_for_res(64, 3, 6), device="cuda").train()
+    step, init = pixel.make_train_step(cfg, L_cuda)
+    state = init(model, torch.Generator().manual_seed(0))
+    x1_cuda = torch.from_numpy(x1).cuda()
+    sp = state.sched_params
+
+    def grads_of(fn):
+        model.zero_grad(set_to_none=True)
+        sp.grad = None
+        fn()
+        return ({k: p.grad.detach().cpu().numpy() for k, p in model.named_parameters()},
+                sp.grad.detach().cpu().numpy())
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.linalg.norm(b))
+
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the ranks' algorithms (dryrun.py::_grads)
+    try:
+        reset_launches()
+        t, noise = step.draw(x1_cuda, (0, 5))
+        loss1 = float(step.compute_grads(state, x1_cuda, t, noise))
+        counts = read_launches()
+        g1 = {k: p.grad.detach().cpu().numpy() for k, p in model.named_parameters()}
+        s1 = sp.grad.detach().cpu().numpy()
+        gs, ss = grads_of(lambda: split_grads(cfg, L_cuda, model, sp, x1_cuda, t, noise, 2))
+        by_T = {1000: rel(s1, ss)}
+        for T in (100, 10000):  # the same draw key at another T: whole against split
+            cfg_T = dataclasses.replace(cfg, nb_steps=T)
+            step_T, _ = pixel.make_train_step(cfg_T, L_cuda)
+            t_T, noise_T = step_T.draw(x1_cuda, (0, 5))
+            _, sw_T = grads_of(lambda: step_T.loss_fn(model, sp, x1_cuda, t_T, noise_T)
+                               .backward())
+            _, ss_T = grads_of(lambda: split_grads(cfg_T, L_cuda, model, sp, x1_cuda, t_T,
+                                                   noise_T, 2))
+            by_T[T] = rel(sw_T, ss_T)
+    finally:
+        torch.backends.cudnn.deterministic = was
+    del model, state, step, x1_cuda, t, noise, sp
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    run_ranks(2, ["--job", "grads", "--full_width", "--inputs", inputs, "--out", grads],
+              device="cuda", backend="gloo", timeout=300)
+    got = np.load(grads)
+    norm = math.sqrt(sum(float(np.sum(np.square(v.astype(np.float64)))) for v in g1.values()))
+    err = max(float(np.abs(got[f"g/{k}"] - v).max()) for k, v in g1.items())
+    err_split = max(float(np.abs(got[f"g/{k}"] - v).max()) for k, v in gs.items())
+    s_norm = float(np.linalg.norm(s1))
+    s_err = float(np.abs(got["sched"] - s1).max())
+    s_err_split = float(np.abs(got["sched"] - ss).max())
+    loss2 = float(got["loss"])
+    log(f"parallel (b): 2 gloo ranks on the card ({time.time() - t0:.1f}s with their start): "
+        f"loss {loss2:.6g} vs one rank {loss1:.6g}; UNet grads max|diff| {err:.3e} "
+        f"(bound 1e-5 x norm {norm:.4g} = {1e-5 * norm:.3e}); (tau, s, e) grads "
+        f"{got['sched'].tolist()} vs {s1.tolist()}, max|diff| {s_err:.3e} "
+        f"({s_err / s_norm:.2e} x its norm; rtol 1e-3); K2/K3 launches on rank 0 "
+        f"{got['launches'].tolist()}, one rank "
+        f"{[counts['fused_bluenoise'], counts['fused_bluenoise_grad']]}; all-reduce of the "
+        f"gradient over gloo {float(got['allreduce_ms']):.2f} ms (median of 3, host clock)")
+    log(f"parallel (b): against the same two 32-row blocks stepped in turn in this process: "
+        f"UNet grads max|diff| {err_split:.3e} ({err_split / norm:.2e} x norm), (tau, s, e) "
+        f"{ss.tolist()}, max|diff| {s_err_split:.3e} ({s_err_split / s_norm:.2e} x its norm; "
+        f"both bound 1e-5 x norm); one 64-row pass against the split, (tau, s, e) max|diff| x "
+        f"norm by T: {by_T}")
+    check(counts["fused_bluenoise"] == 1 and counts["fused_bluenoise_grad"] == 1,
+          "the one-rank step must launch K2 and K3 once")
+    check(err_split <= 1e-5 * norm and s_err_split <= 1e-5 * float(np.linalg.norm(ss)),
+          "the two ranks' summed gradients are not their blocks' summed in one process")
+    check(got["launches"].tolist() == [1, 1], "each rank's step must launch K2 and K3 once")
+    check(err <= 1e-5 * norm, "the two ranks' summed UNet gradient is not the one-rank step's")
+    # (tau, s, e) against one 64-row pass: the split's fp32 rounding, which
+    # by_T shows growing with T (the loss weight dgamma/dalpha); held to the
+    # JAX multi-process test's bound (tests/mp_gradparity_worker.py)
+    check(np.allclose(got["sched"], s1, rtol=1e-3, atol=1e-5),
+          "the two ranks' (tau, s, e) gradient is not one rank's (rtol 1e-3)")
+    check(abs(loss2 - loss1) <= 1e-5 * abs(loss1), "the two ranks' loss is not one rank's")
+    out.update(gloo2_allreduce_ms=float(got["allreduce_ms"]), grad_err=err, grad_norm=norm,
+               sched_err=s_err, sched_err_split=s_err_split, whole_vs_split_by_T=by_T)
+    return out
+
+
+def phase_dryrun(torch):
+    """16. The port's dry run on 2 ranks sharing the card (gloo): the seven
+    legs."""
+    from bndm_tpu_torch.dryrun import dryrun_multichip
+
+    t0 = time.time()
+    text = dryrun_multichip(2, device="cuda", timeout=300)
+    legs = re.findall(r"^dryrun_multichip\(2\): (.+) OK", text, re.M)
+    log(f"dryrun: {len(legs)} legs in {time.time() - t0:.1f}s")
+    check(len(legs) == 7, f"the dry run must pass seven legs, passed {legs}")
+
+
+FIGS_M = {3: 4, 1200: 2}  # K1's launches on the figure path, by M
+
+
+def phase_figs(torch, work, bn_dir, L_blue, peak, flush):
+    """17. The figure CLI at its default 100 realisations: the files, K1
+    launched 4 times at M = 3 and twice at M = 1200, the written M = 1200
+    spectra within TOL of the plain version's (on the CPU) on the same
+    white noise; K1 at M = 3 and 1200 against its plain version, and timed
+    against torch.matmul in alternating turns, L2 flushed."""
+    import numpy as np
+
+    from bndm_tpu_torch.cli import figs
+    from bndm_tpu_torch.cli.common import load_L_for
+    from bndm_tpu_torch.ops import cuda_bluenoise as cb
+
+    out_dir = os.path.join(work, "figs")
+    reset_launches()
+    t0 = time.time()
+    spectra = figs.main(["--output_dir", out_dir, "--bluenoise_dir", bn_dir,
+                         "--device", "cuda"])
+    seconds = time.time() - t0
+    launches = read_launches()["tri_matmul"]
+    by_m = dict(cb.tri_matmul.launches_by_m)  # counted where the wrapper launches
+    log(f"figs: {seconds:.1f}s; K1 launches {launches}, by M {by_m}")
+    check(by_m == FIGS_M and launches == sum(FIGS_M.values()),
+          f"K1 must launch {FIGS_M} (by M) on the figure path, launched {by_m}")
+    for f in ("gaussianBN_res64_0.png", "gaussianBN_res64_500.png", "gaussianBN_res64_999.png",
+              "gaussianBN_res64_spectrum_0.png", "gaussianRN_res64_0.png", "inset.png",
+              "gaussianBN_res128_repetitive_True_noise.png",
+              "gaussianBN_res128_repetitive_False_noise.png",
+              "gaussianBN_res128_repetitive_True_spectrum.png"):
+        check(os.path.exists(os.path.join(out_dir, f)), f"figs wrote no {f}")
+    rep, ind = spectra[True], spectra[False]
+    check((rep < 1e-3).mean() > (ind < 1e-3).mean(),
+          "the repetitive tiles' spectrum lacks its grid of harmonics")
+    L_cpu = torch.from_numpy(load_L_for("gaussianBN", bn_dir))
+    spec_err = 0.0
+    for repetitive in (True, False):
+        white = figs._white((100, 3, 128, 128), "cuda", 0, 3, int(repetitive)).cpu()
+        avg, _ = figs.supp_spectrum(L_cpu, white, repetitive)  # the plain product
+        plain = avg[0].numpy()
+        spec_err = max(spec_err, float(np.abs(plain / plain.max() - spectra[repetitive]).max()))
+    log(f"figs: the M = 1200 spectra against the plain version's on the same white noise: "
+        f"max|diff| {spec_err:.3e} (normalized to 1; bound {TOL})")
+    check(spec_err <= TOL, "the figure's spectrum disagrees with the plain version's")
+
+    n = L_blue.shape[0]
+    g = torch.Generator().manual_seed(12)
+    rows = []
+    real = cb.tri_matmul
+    for m in FIGS_M:
+        W = torch.randn(n, m, generator=g).cuda()
+        got, plain = real(L_blue, W), cb.tri_matmul_plain(L_blue, W)
+        err = (got - plain).abs().max().item()
+        e64 = (got.double() - L_blue.double() @ W.double()).abs().max().item()
+        check(torch.allclose(got, plain, rtol=TOL, atol=TOL), f"K1 disagrees at M={m}")
+        iters = 10 if m < 100 else 5
+        turns = alternating({"library": lambda: torch.matmul(L_blue, W),
+                             "kernel": lambda: real(L_blue, W)}, 5,
+                            lambda fn: launch_times(torch, fn, iters, flush))
+        plain_ms = time_ms(torch, lambda: cb.tri_matmul_plain(L_blue, W), 10, flush)
+        design = "skinny" if m <= cb.SKINNY_MAX_M else "wide"
+        row = shares({"m": m, "design": design, "ms": turns["kernel"],
+                      "library_ms": turns["library"], "plain_ms": plain_ms,
+                      "max_abs_err": err, "max_abs_err_fp64": e64,
+                      "launches": by_m.get(m, 0)}, k1_bounds(n, m, peak),
+                     "fp32" if design == "skinny" else "3xtf32")
+        rows.append(row)
+        log(f"figs K1 M={m}: max|err| vs plain {err:.3e}, vs fp64 {e64:.3e}; kernel "
+            f"{row['ms']:.4f} ms ({design}), torch.matmul {row['library_ms']:.4f} ms, plain "
+            f"{plain_ms:.4f} ms; bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+            f"{'fp32 FMAs' if design == 'skinny' else '3xTF32'}) (median of 5 alternating "
+            "turns, L2 flushed)")
+    return {"seconds": seconds, "rows": rows, "spectrum_err": spec_err, "launches": launches,
+            "by_m": by_m}
+
+
+def phase_parity(torch, work):
+    """18. parity_check on a full-width res-64 two-head UNet from seeded
+    weights, written as .safetensors (export_reference_unet) and as a
+    model.ckpt (export_torch_ckpt): the probe statistics on the card within
+    1e-3 of the CPU's, then the 250-step sample."""
+    from bndm_tpu_torch.cli.parity_check import main, probe_stats
+    from bndm_tpu_torch.models.convert import export_reference_unet, export_torch_ckpt
+    from bndm_tpu_torch.models.unet2d import UNet2D, unet_config_for_res
+
+    d = os.path.join(work, "parity")
+    os.makedirs(d)
+    torch.manual_seed(21)
+    model = UNet2D(unet_config_for_res(64, 3, 6), device="cpu").eval()
+    paths = (os.path.join(d, "model.safetensors"), os.path.join(d, "model.ckpt"))
+    export_reference_unet(model, paths[0])
+    export_torch_ckpt(model, paths[1])
+    with torch.no_grad():
+        probe = torch.linspace(-1, 1, 3 * 64 * 64).reshape(1, 3, 64, 64)
+        cpu = probe_stats(model(probe, torch.tensor([0.5])))
+    del model
+    out = {}
+    for path in paths:
+        t0 = time.time()
+        res = main(["--ckpt", path, "--device", "cuda",
+                    "--output", os.path.join(d, os.path.basename(path) + ".png")])
+        seconds = time.time() - t0
+        err = max(abs(a - b) for a, b in zip(res["probe"], cpu))
+        sample = res["sample"]
+        log(f"parity_check {os.path.basename(path)}: probe on the card {res['probe']}, on the "
+            f"CPU {cpu}, max|diff| {err:.3e} (bound 1e-3); 250-step sample "
+            f"{tuple(sample.shape)} in {seconds:.1f}s with the load")
+        check(err <= 1e-3, f"the probe on the card disagrees with the CPU's ({path})")
+        check(tuple(sample.shape) == (1, 3, 64, 64) and bool(torch.isfinite(sample).all()),
+              "parity_check's sample is not finite")
+        check(os.path.exists(os.path.join(d, os.path.basename(path) + "_0.png")),
+              "parity_check wrote no sample image")
+        out[os.path.basename(path)] = {"probe_err": err, "seconds": seconds}
+    return out
+
+
+def phase_demo(torch, work):
+    """19. The demo: the three full-width res-64 UNets from random init, 50
+    steps each; the http server on an ephemeral port, GET the page and a
+    frame, POST /api/generate; the static panel."""
+    import json as _json
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    import bndm_tpu_torch.cli.demo as demo
+
+    d = os.path.join(work, "demo")
+    os.makedirs(d)
+    opt = demo.parse_args(["--res=64", "--nb_steps=50", "--port=0", "--device=cuda",
+                           f"--output={d}/panel.png"])
+    with contextlib.chdir(d):
+        loaded = demo.load_all(opt, torch.device("cuda"))
+    params = {k: sum(p.numel() for p in m.parameters()) for k, m in loaded.items()}
+    t0 = time.time()
+    results = demo.generate_all(opt, loaded)
+    seconds = time.time() - t0
+    log(f"demo: parameters {params}; three 50-step samplers {seconds:.2f}s; frames "
+        f"{ {k: v.shape for k, v in results.items()} }")
+    check(params["BNDM"] == 113_676_678, "the BNDM model is not the full-width two-head UNet")
+    check(all(np.isfinite(v).all() and v.shape[1:] == (3, 64, 64) for v in results.values()),
+          "the demo's frames are not finite")
+    demo.save_panel(results, opt.output)
+    srv = demo.make_http_server(opt, results, loaded)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    base = "http://%s:%d" % srv.server_address[:2]
+    try:
+        page = opener.open(base + "/", timeout=60).read().decode()
+        png = opener.open(base + "/frame/BNDM/0.png", timeout=60).read()
+        t0 = time.time()
+        ok = _json.loads(opener.open(urllib.request.Request(base + "/api/generate?seed=1",
+                                                            method="POST"), timeout=300).read())
+        post_s = time.time() - t0
+        again = opener.open(base + "/frame/BNDM/999.png", timeout=60).read()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=60)
+    log(f"demo http: page {len(page)} bytes, frame {len(png)} bytes, POST /api/generate "
+        f"{ok} in {post_s:.2f}s")
+    check(all(m in page for m in ("DDIM", "IADB", "BNDM")), "the demo page lacks a method")
+    check(png[:8] == again[:8] == b"\x89PNG\r\n\x1a\n", "the demo served no PNG frame")
+    check(ok == {"ok": True}, "POST /api/generate failed")
+    check(os.path.exists(opt.output), "the demo wrote no panel")
+    return {"seconds": seconds, "post_s": post_s}
+
+
 def main(argv):
-    if argv not in ([], ["--kernels"], ["--probes"], ["--tiers"], ["--pipelines"], ["--train"]):
+    if argv not in ([], ["--kernels"], ["--probes"], ["--tiers"], ["--pipelines"], ["--train"],
+                    ["--parallel"], ["--surfaces"]):
         log(f"FAIL: unknown arguments {argv} (the options are --kernels, --probes, --tiers, "
-            "--pipelines and --train)")
+            "--pipelines, --train, --parallel and --surfaces)")
         return 2
     only = argv[0] if argv else None
     if not os.path.isdir(os.path.join(HERE, "bndm_tpu_torch")):
@@ -1692,12 +2102,20 @@ def main(argv):
             phase_latent(torch, work, bn_dir)
             phase_latent512(torch, work, bn_dir)
             return finish(torch, kind, [], t_start)
+        if only == "--parallel":  # phases 15-16 alone
+            phase_parallel(torch, work, bn_dir)
+            phase_dryrun(torch)
+            return finish(torch, kind, [], t_start)
         flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB > L2
+        if only == "--surfaces":  # phases 17-19 alone
+            phase_figs(torch, work, bn_dir, L_blue, peak, flush)
+            phase_parity(torch, work)
+            phase_demo(torch, work)
+            return finish(torch, kind, [], t_start)
 
         # 3-4. K1, K2 and K3
         k1 = phase_k1(torch, L_blue, peak, flush)
         k2 = phase_k2(torch, L_blue, peak, flush)
-        del flush
         if only == "--kernels":  # phases 3-4 alone: no path driven, no launches counted
             return finish(torch, kind, k_kernels(k1, k2, None), t_start)
         # 5. the streaming probes and their bench entry points
@@ -1741,12 +2159,33 @@ def main(argv):
             f"{la['train']['images_per_s']:.2f} images/s, test "
             f"{la['test']['with_decode_samples_per_s']:.2f} samples/s with the decode; latent "
             f"res-512 train {la512['images_per_s']:.2f} images/s (batch 64)")
+        torch.cuda.empty_cache()
+        # 15-16. data parallelism: one NCCL rank, two gloo ranks, the dry run
+        t0 = time.time()
+        par = phase_parallel(torch, work, bn_dir)
+        torch.cuda.empty_cache()
+        phase_dryrun(torch)
+        log(f"parallel: {time.time() - t0:.1f}s; all-reduce of a step's gradient: one NCCL "
+            f"rank {par['nccl1_allreduce_ms']:.4f} ms, two gloo ranks on the card "
+            f"{par['gloo2_allreduce_ms']:.2f} ms")
+        # 17-19. the remaining surfaces: figs (K1 at M = 3 and 1200), parity_check, demo
+        t0 = time.time()
+        fg = phase_figs(torch, work, bn_dir, L_blue, peak, flush)
+        torch.cuda.empty_cache()
+        phase_parity(torch, work)
+        phase_demo(torch, work)
+        log(f"surfaces: {time.time() - t0:.1f}s")
+        del flush
 
     kernels = k_kernels(k1, k2, (sr["launches"], tr["launches"], tr["k3_launches"]))
     kernels[0]["launches_serving_tiers"] = tiers["superres int8+cached(i=8)"]["k1"]
     kernels[0]["launches_latent256_train"] = la["train"]["launches"]
     kernels[0]["latent256_train_shape"] = next(r for r in k1[0] if r["m"] == 1024)
     kernels[1]["launches_latent512_train"] = la512["launches"]
+    kernels[0]["launches_figs"] = {f"M={m}": n for m, n in sorted(fg["by_m"].items())}
+    kernels[0]["launches_figs_total"] = fg["launches"]
+    kernels[0]["figs"] = fg["rows"]
+    kernels[0]["figs_spectrum_max_abs_err"] = fg["spectrum_err"]
     kernels += probe_kernels(probes)
     log(f"train: {tr['images_per_s']:.2f} images/s over steps 2-8, steady "
         f"{tr['steady_images_per_s']:.2f}, first step {tr['first_step_s']:.3f} s (batch 64)")

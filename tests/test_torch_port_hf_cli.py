@@ -285,8 +285,10 @@ def test_cli_train_then_test(workdir, monkeypatch, capsys, flow):
 
 @pytest.mark.parametrize("module", ["ddim", "latent_iadb"])
 def test_cli_multi_host_flags_raise(module):
+    """The multi-host flags start a data-parallel run; a coordinator without
+    the process count and id raises before anything is built."""
     import importlib
 
     main = importlib.import_module(f"bndm_tpu_torch.cli.{module}").main
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="needs --coordinator_address, --num_processes"):
         main(["--coordinator_address=localhost:1234", "--device=cpu"])

@@ -248,10 +248,18 @@ def test_cli_superres_test_branch(cli_dirs, monkeypatch, capsys):
 @pytest.mark.parametrize("flag", ["--process_id=0", "--num_processes=2",
                                   "--coordinator_address=localhost:1234"])
 def test_cli_flags_of_later_items_raise(flag):
-    """The multi-host flags (the serving flags run: test_torch_port_serving_tiers.py)."""
-    from bndm_tpu_torch.cli.iadb_bn import main
+    """The multi-host flags start a data-parallel run (test_torch_port_parallel.py
+    runs one): an incomplete set raises before anything is built, and
+    ``--process_id`` alone, as in the JAX CLI, leaves a single process."""
+    from bndm_tpu_torch.cli.common import start_distributed
+    from bndm_tpu_torch.cli.iadb_bn import main, parse_args
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if flag == "--process_id=0":
+        opt = parse_args(["--device=cpu", flag])
+        assert start_distributed(opt, torch.device("cpu")) == torch.device("cpu")
+        assert not torch.distributed.is_initialized()
+        return
+    with pytest.raises(ValueError, match="needs --coordinator_address, --num_processes"):
         main(["--train_or_test=test", "--device=cpu", flag])
 
 
@@ -292,6 +300,10 @@ def test_port_imports_no_jax():
     # the HF-style pipelines' modules are among the scanned
     for mod in ("cli/ddim.py", "cli/latent_iadb.py", "cli/hf_args.py", "models/vae.py",
                 "samplers/ddim.py", "train/ddim.py", "train/latent.py", "train/ema.py",
-                "train/schedules_lr.py", "data/latent_cache.py"):
+                "train/schedules_lr.py", "data/latent_cache.py",
+                # data parallelism and the remaining surfaces
+                "parallel/__init__.py", "parallel/distributed.py", "parallel/mesh.py",
+                "native/__init__.py", "dryrun.py", "cli/figs.py", "cli/parity_check.py",
+                "cli/demo.py", "api.py", "utils/spectrum.py"):
         assert REPO / "bndm_tpu_torch" / mod in files, mod
     assert not found
