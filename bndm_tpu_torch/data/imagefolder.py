@@ -19,6 +19,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from bndm_tpu_torch.utils.timing import span
+
 _EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tiff", ".webp")
 
 
@@ -145,11 +147,12 @@ class BatchLoader:
             try:
                 for b in range(nb):
                     sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
-                    imgs = list(pool.map(
-                        lambda i: self.ds.get(i, bool(flips[i]),
-                                              None if crops is None else crops[i]),
-                        sel))
-                    if not _put(q, np.stack(imgs), stop):
+                    with span("data.decode"):
+                        batch = np.stack(list(pool.map(
+                            lambda i: self.ds.get(i, bool(flips[i]),
+                                                  None if crops is None else crops[i]),
+                            sel)))
+                    if not _put(q, batch, stop):
                         return
             except Exception as e:  # noqa: BLE001 -- re-raised by the consumer
                 _put(q, e, stop)
@@ -160,7 +163,8 @@ class BatchLoader:
         t.start()
         try:
             while True:
-                batch = q.get()
+                with span("data.next"):
+                    batch = q.get()
                 if batch is None:
                     break
                 if isinstance(batch, Exception):

@@ -1,6 +1,6 @@
 """Memory-mapped latent cache of the latent pipeline.
 
-The port's own copy of ``bndm_tpu/data/latent_cache.py`` (numpy only): the
+The port's own copy of ``bndm_tpu/data/latent_cache.py`` (numpy): the
 pipeline VAE-encodes every training image (x2 for hflip) once and stores
 the fp16 latents in one flat ``latents.npy``, memory-mapped at read time,
 with a ``meta.json`` beside it. ``batches(seed=(seed, epoch))`` draws the
@@ -13,6 +13,8 @@ import json
 import os
 
 import numpy as np
+
+from bndm_tpu_torch.utils.timing import span
 
 
 class LatentCacheWriter:
@@ -59,4 +61,6 @@ class LatentCacheDataset:
         nb = len(idx) // batch_size if drop_last else -(-len(idx) // batch_size)
         for b in range(nb):
             sel = idx[b * batch_size:(b + 1) * batch_size]
-            yield np.asarray(self.latents[np.sort(sel)], np.float32)
+            with span("data.next"):
+                batch = np.asarray(self.latents[np.sort(sel)], np.float32)
+            yield batch

@@ -23,6 +23,7 @@ from torch import nn
 
 from bndm_tpu_torch.models.unet2d import (ACT, AttentionBlock, Conv2d, GroupNorm,
                                           ResnetBlock2D, Upsample2D)
+from bndm_tpu_torch.utils.timing import span
 
 SD_SCALING = 0.18215
 
@@ -195,15 +196,19 @@ def make_decoder(vae, microbatch=None):
     do at a batch of 2 and more, not at 1; cuDNN may choose another
     algorithm per batch size)."""
 
+    def chunk(z):
+        with span("vae.decode"):
+            return vae.decode(z)
+
     @torch.no_grad()
     def decode(z):
         if not microbatch:
-            return vae.decode(z)
+            return chunk(z)
         b = z.shape[0]
         mb = min(microbatch, b)
         pad = (-b) % mb
         if pad:
             z = torch.cat([z, z.new_zeros((pad,) + tuple(z.shape[1:]))])
-        return torch.cat([vae.decode(zc) for zc in torch.split(z, mb)])[:b]
+        return torch.cat([chunk(zc) for zc in torch.split(z, mb)])[:b]
 
     return decode

@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from bndm_tpu_torch.ops.schedules import alpha_schedule, gamma_schedule
+from bndm_tpu_torch.utils.timing import span
 
 
 def _frame_slots(nb_steps, log_freq):
@@ -59,14 +60,16 @@ def _timestep(x, a):
 def _plain_chain(model, x, coefs, *, two_head, x_c=None, frames=None, slots=None):
     a_now, da, dg = coefs
     nb_steps = len(da)
-    for i in range(nb_steps):
-        inp = x if x_c is None else torch.cat([x, x_c], dim=1)
-        d = model(inp, _timestep(x, a_now[i]))
-        # the differences are fp32 values; x is fp32, so the products are too
-        x = iadb_step(x, d, da[i], 0.0, dg[i], 0.0, two_head=two_head)
-        t = nb_steps - 1 - i
-        if frames is not None and slots[t] >= 0:
-            frames[slots[t]] = x[0:1].to(frames.dtype)
+    with span("sample.chain"):
+        for i in range(nb_steps):
+            with span("sample.step"):
+                inp = x if x_c is None else torch.cat([x, x_c], dim=1)
+                d = model(inp, _timestep(x, a_now[i]))
+                # the differences are fp32 values; x is fp32, so the products are too
+                x = iadb_step(x, d, da[i], 0.0, dg[i], 0.0, two_head=two_head)
+                t = nb_steps - 1 - i
+                if frames is not None and slots[t] >= 0:
+                    frames[slots[t]] = x[0:1].to(frames.dtype)
     return x
 
 
@@ -126,16 +129,18 @@ def _cached_chain(apply_full, apply_shallow, x, coefs, *, cache_interval, two_he
     if carry_dtype is not None:
         x = x.to(carry_dtype)
     deep = None
-    for i in range(len(da)):
-        inp = x if x_c is None else torch.cat([x, x_c], dim=1)
-        t = _timestep(x, a_now[i])
-        if i % cache_interval == 0:  # a group's first step
-            d, deep = apply_full(inp, t)
-        else:
-            d = apply_shallow(inp, t, deep)
-        x = iadb_step(x, d, da[i], 0.0, dg[i], 0.0, two_head=two_head)
-        if carry_dtype is not None:
-            x = x.to(carry_dtype)
+    with span("sample.chain"):
+        for i in range(len(da)):
+            with span("sample.step"):
+                inp = x if x_c is None else torch.cat([x, x_c], dim=1)
+                t = _timestep(x, a_now[i])
+                if i % cache_interval == 0:  # a group's first step
+                    d, deep = apply_full(inp, t)
+                else:
+                    d = apply_shallow(inp, t, deep)
+                x = iadb_step(x, d, da[i], 0.0, dg[i], 0.0, two_head=two_head)
+                if carry_dtype is not None:
+                    x = x.to(carry_dtype)
     return x.to(out_dtype) if carry_dtype is not None else x
 
 

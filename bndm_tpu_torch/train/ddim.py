@@ -25,6 +25,7 @@ from bndm_tpu_torch.samplers.ddim import DDIMScheduler
 from bndm_tpu_torch.train.ema import EmaState, ema_init, ema_update
 from bndm_tpu_torch.train.losses import antithetic_timesteps_ddim, ddim_loss
 from bndm_tpu_torch.train.schedules_lr import HFAdamW
+from bndm_tpu_torch.utils.timing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,9 +76,11 @@ class HFTrainState:
 def apply_update(state: HFTrainState, cfg):
     """The optimizer on the gradients in ``.grad``, then the EMA, then the
     step count (shared by the DDIM and latent steps)."""
-    state.opt.step()
-    if state.ema is not None:
-        ema_update(state.ema, state.model, cfg.ema_max_decay, cfg.ema_inv_gamma, cfg.ema_power)
+    with span("train.optimizer"):
+        state.opt.step()
+        if state.ema is not None:
+            ema_update(state.ema, state.model, cfg.ema_max_decay, cfg.ema_inv_gamma,
+                       cfg.ema_power)
     state.step += 1
 
 
@@ -85,9 +88,12 @@ def backward_global(state: HFTrainState, loss_fn, mesh, *args):
     """Zero the gradients, backpropagate ``loss_fn(forward, *args)`` (this
     rank's share; DDP sums the gradient over the ranks) and return the
     global loss (shared by the DDIM and latent steps)."""
-    state.opt.zero_grad()
-    loss = loss_fn(state.forward or state.model, *args)
-    loss.backward()
+    with span("train.zero_grad"):
+        state.opt.zero_grad()
+    with span("train.forward"):
+        loss = loss_fn(state.forward or state.model, *args)
+    with span("train.backward"):
+        loss.backward()
     loss = loss.detach()
     all_reduce_sum_(mesh, [loss])
     return loss
@@ -116,14 +122,16 @@ def make_ddim_train_step(cfg: DDIMTrainConfig, make_optimizer, mesh=None):
         return loss / count if count > 1 else loss
 
     def train_step(state: HFTrainState, batch01, key):
-        clean = batch01.to(torch.float32) * 2.0 - 1.0
-        shape = (clean.shape[0] * count,) + tuple(clean.shape[1:])
-        t = antithetic_timesteps_ddim(make_generator("cpu", *key), shape[0],
-                                      cfg.ddpm_num_steps).to(clean.device)
-        noise = torch.randn(shape, generator=make_generator(clean.device, *key, 2),
-                            device=clean.device)
-        loss = backward_global(state, loss_fn, mesh, clean, t, noise)
-        apply_update(state, cfg)
+        with span("train.step"):
+            clean = batch01.to(torch.float32) * 2.0 - 1.0
+            shape = (clean.shape[0] * count,) + tuple(clean.shape[1:])
+            with span("train.draw"):
+                t = antithetic_timesteps_ddim(make_generator("cpu", *key), shape[0],
+                                              cfg.ddpm_num_steps).to(clean.device)
+                noise = torch.randn(shape, generator=make_generator(clean.device, *key, 2),
+                                    device=clean.device)
+            loss = backward_global(state, loss_fn, mesh, clean, t, noise)
+            apply_update(state, cfg)
         return {"loss": loss}
 
     def init_state(model):

@@ -25,6 +25,7 @@ from bndm_tpu_torch.train.ddim import HFTrainState, apply_update, backward_globa
 from bndm_tpu_torch.train.ema import ema_init
 from bndm_tpu_torch.train.losses import antithetic_timesteps, bndm_loss, iadb_loss
 from bndm_tpu_torch.train.pixel import draw_noise, global_like
+from bndm_tpu_torch.utils.timing import span
 
 # the noise engine: K2 for a fresh 64^2 draw on CUDA (ops/noise.py::takes_fused),
 # the unfused path (K1 on CUDA) elsewhere; the JAX package's latent step keeps
@@ -64,8 +65,9 @@ def make_latent_train_step(cfg: LatentTrainConfig, L, make_optimizer, mesh=None)
         ``t`` and ``noise`` (K2's seeds, a tuple, or the white draw, a
         tensor) are the global batch's."""
         draw = {"seeds": noise} if isinstance(noise, tuple) else {"white": noise}
-        r = get_noise(global_like(clean, count), L, t / T, noise_type=cfg.noise_type,
-                      train=True, inplace=False, engine=ENGINE, **draw)
+        with span("train.noise"):
+            r = get_noise(global_like(clean, count), L, t / T, noise_type=cfg.noise_type,
+                          train=True, inplace=False, engine=ENGINE, **draw)
         r = type(r)(*local_rows(mesh, *r))
         (t,) = local_rows(mesh, t)
         alpha = t / T  # linear, hardcoded in the reference
@@ -81,13 +83,15 @@ def make_latent_train_step(cfg: LatentTrainConfig, L, make_optimizer, mesh=None)
         return iadb_loss(d, clean, r.noise)
 
     def train_step(state: HFTrainState, latents, key):
-        clean = latents.to(L.device, torch.float32)
-        like = global_like(clean, count)
-        t = antithetic_timesteps(make_generator("cpu", *key), like.shape[0], T)
-        t = t.to(L.device, torch.float32)
-        noise = draw_noise(like, key, cfg.noise_type, ENGINE)
-        loss = backward_global(state, loss_fn, mesh, clean, t, noise)
-        apply_update(state, cfg)
+        with span("train.step"):
+            clean = latents.to(L.device, torch.float32)
+            like = global_like(clean, count)
+            with span("train.draw"):
+                t = antithetic_timesteps(make_generator("cpu", *key), like.shape[0], T)
+                t = t.to(L.device, torch.float32)
+                noise = draw_noise(like, key, cfg.noise_type, ENGINE)
+            loss = backward_global(state, loss_fn, mesh, clean, t, noise)
+            apply_update(state, cfg)
         return {"loss": loss}
 
     def init_state(model):

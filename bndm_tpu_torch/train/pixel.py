@@ -37,6 +37,7 @@ from bndm_tpu_torch.parallel.mesh import (all_reduce_sum_, data_shard, gather_ba
                                           wrap_ddp)
 from bndm_tpu_torch.train.losses import antithetic_timesteps, bndm_loss, iadb_loss, remap_batch
 from bndm_tpu_torch.utils.image import superres_condition
+from bndm_tpu_torch.utils.timing import span
 
 # optax.adamw's default; torch.optim.AdamW's own default is 1e-2
 WEIGHT_DECAY = 1e-4
@@ -187,8 +188,9 @@ def make_train_step(cfg: TrainConfig, L, mesh=None):
         alpha_all = alpha_schedule(t, cfg.nb_steps, cfg.scheduler_alpha, cfg.alpha_param)
         gamma_all = gamma_schedule(t, cfg.nb_steps, cfg.scheduler_gamma, sched_params)
         draw = {"seeds": noise} if isinstance(noise, tuple) else {"white": noise}
-        r_all = get_noise(global_like(x1, count), L, gamma_all, noise_type=cfg.noise_type,
-                          train=True, inplace=False, engine=cfg.noise_engine, **draw)
+        with span("train.noise"):
+            r_all = get_noise(global_like(x1, count), L, gamma_all, noise_type=cfg.noise_type,
+                              train=True, inplace=False, engine=cfg.noise_engine, **draw)
         r = type(r_all)(*local_rows(mesh, *r_all))
         alpha, gamma, t = local_rows(mesh, alpha_all, gamma_all, t)
         x0 = r.noise
@@ -217,10 +219,13 @@ def make_train_step(cfg: TrainConfig, L, mesh=None):
         """Backpropagate this rank's share of the loss into ``.grad`` (DDP
         sums the model's gradient over the ranks), then sum the schedule's
         gradient and the loss over the ranks. Returns the global loss."""
-        state.opt.zero_grad(set_to_none=True)
-        state.sched_opt.zero_grad(set_to_none=True)
-        loss = loss_fn(state.forward or state.model, state.sched_params, x1, t, noise)
-        loss.backward()
+        with span("train.zero_grad"):
+            state.opt.zero_grad(set_to_none=True)
+            state.sched_opt.zero_grad(set_to_none=True)
+        with span("train.forward"):
+            loss = loss_fn(state.forward or state.model, state.sched_params, x1, t, noise)
+        with span("train.backward"):
+            loss.backward()
         loss = loss.detach()
         if mesh is not None:
             if state.sched_params.grad is None:  # a schedule without (tau, s, e)
@@ -231,32 +236,35 @@ def make_train_step(cfg: TrainConfig, L, mesh=None):
     def draw(x1, key):
         """t (B,) and the noise draw for the global batch of which ``x1``
         holds this rank's rows, from ``key``."""
-        like = global_like(x1, count)
-        t = antithetic_timesteps(make_generator("cpu", *key), like.shape[0], cfg.nb_steps)
-        return t.to(L.device, torch.float32), draw_noise(like, key, cfg.noise_type,
-                                                         cfg.noise_engine)
+        with span("train.draw"):
+            like = global_like(x1, count)
+            t = antithetic_timesteps(make_generator("cpu", *key), like.shape[0], cfg.nb_steps)
+            return t.to(L.device, torch.float32), draw_noise(like, key, cfg.noise_type,
+                                                             cfg.noise_engine)
 
     def train_step(state: TrainState, batch01, key):
-        x1 = batch01.to(L.device, torch.float32) * 2.0 - 1.0
-        t, noise = draw(x1, key)
-        loss = compute_grads(state, x1, t, noise)
-        apply_gradients(state)
-        sp = state.sched_params.detach().clone()
+        with span("train.step"):
+            x1 = batch01.to(L.device, torch.float32) * 2.0 - 1.0
+            t, noise = draw(x1, key)
+            loss = compute_grads(state, x1, t, noise)
+            apply_gradients(state)
+            sp = state.sched_params.detach().clone()
         return {"loss": loss, "sched_tau": sp[0], "sched_s": sp[1], "sched_e": sp[2]}
 
     def apply_gradients(state: TrainState):
         """Both optimizers on the gradients in ``.grad`` (summed over the
         ranks already): the clip (model only), the model's step, the
         schedule's step, then the clamp."""
-        if cfg.grad_clip is not None:
-            grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-            clip_by_global_norm_(grads, cfg.grad_clip)
-        state.opt.step()
-        if state.sched_params.grad is None:  # a schedule without (tau, s, e)
-            state.sched_params.grad = torch.zeros_like(state.sched_params)
-        state.sched_opt.step()
-        with torch.no_grad():
-            state.sched_params.copy_(torch.clamp(state.sched_params, clamp_lo, clamp_hi))
+        with span("train.optimizer"):
+            if cfg.grad_clip is not None:
+                grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+                clip_by_global_norm_(grads, cfg.grad_clip)
+            state.opt.step()
+            if state.sched_params.grad is None:  # a schedule without (tau, s, e)
+                state.sched_params.grad = torch.zeros_like(state.sched_params)
+            state.sched_opt.step()
+            with torch.no_grad():
+                state.sched_params.copy_(torch.clamp(state.sched_params, clamp_lo, clamp_hi))
         state.step += 1
 
     def init_state(model, generator):

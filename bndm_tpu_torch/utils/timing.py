@@ -1,63 +1,116 @@
-"""Timing and profiling utilities.
+"""Timing, profiling and the program's spans.
 
-Counterpart of ``bndm_tpu/utils/timing.py``: host-clock timing of calls that
-are synchronised on the device (``torch.cuda.synchronize`` in place of
-``block_until_ready``), the mean excluding the first (warm-up) call, and a
-``torch.profiler`` trace in place of ``jax.profiler``'s.
+Counterpart of ``bndm_tpu/utils/timing.py``: chained passes timed with CUDA
+events (``pass_ms``), and a ``torch.profiler`` trace in place of
+``jax.profiler``'s (``profile_trace``).
+
+Spans mark the phases of the program's own work (the train step's, the data
+feed's, the sampler's and the decode's): ``with span("train.forward"):``.
+A span is recorded while a ``torch.profiler`` profile records; otherwise
+``span()`` returns one shared object that does nothing, and costs the check
+of one module-level flag. A recorded span enters ``record_function("bndm." + name)``, so that
+the profiler's trace shows it beside the device's kernels, and keeps a
+:class:`SpanRecord` in memory until ``take_spans()``. A span reads host
+clocks only: it never synchronises the device nor reads a device value.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
+from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
+
+PREFIX = "bndm."
+# spans kept between two take_spans(); later ones are counted, not kept
+MAX_SPANS = 200_000
 
 
-class Timer:
-    """Collects per-call wall times; mean excludes the first (warmup) call."""
+class SpanRecord(NamedTuple):
+    name: str  # "bndm.<phase>", the name of its record_function range
+    parent: Optional[str]  # the enclosing span on the same thread
+    thread: int  # threading.get_ident()
+    main: bool  # whether the thread is the main thread
+    # time.time_ns(): the clock of torch.profiler's host events (start_ns())
+    start_ns: int
+    end_ns: int
+    cpu_ns: int  # the thread's CPU time over the span (time.thread_time_ns)
 
-    def __init__(self, name=""):
-        self.name = name
-        self.times = []
 
-    @contextlib.contextmanager
-    def measure(self):
-        t0 = time.perf_counter()
-        yield
-        self.times.append(time.perf_counter() - t0)
+_records: list = []
+_dropped = 0
+_lock = threading.Lock()
+_open = threading.local()  # per thread: the names of the open spans
 
-    @property
-    def mean(self):
-        if len(self.times) <= 1:
-            return float(np.mean(self.times)) if self.times else float("nan")
-        return float(np.mean(self.times[1:]))
 
-    @property
-    def total(self):
-        return float(np.sum(self.times))
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "parent", "range", "t0", "c0")
+
+    def __init__(self, name):
+        self.name = PREFIX + name
+
+    def __enter__(self):
+        stack = getattr(_open, "names", None)
+        if stack is None:
+            stack = _open.names = []
+        self.parent = stack[-1] if stack else None
+        stack.append(self.name)
+        self.range = _profiler.record_function(self.name)
+        self.range.__enter__()
+        self.t0 = time.time_ns()
+        self.c0 = time.thread_time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        global _dropped
+        cpu = time.thread_time_ns() - self.c0
+        t1 = time.time_ns()
+        self.range.__exit__(*exc)
+        _open.names.pop()
+        rec = SpanRecord(self.name, self.parent, threading.get_ident(),
+                         threading.current_thread() is threading.main_thread(), self.t0, t1,
+                         cpu)
+        with _lock:
+            if len(_records) < MAX_SPANS:
+                _records.append(rec)
+            else:
+                _dropped += 1
+        return False
+
+
+def span(name):
+    """A context manager around one phase of the program's work, named
+    ``"bndm." + name`` (see the module's docstring)."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name)
+
+
+def take_spans():
+    """The spans recorded since the last call, in the order they ended; the
+    next call starts afresh."""
+    global _records
+    with _lock:
+        out, _records = _records, []
+    return out
+
+
+def spans_dropped():
+    """How many spans found the record full (``MAX_SPANS`` kept), over the
+    life of the process."""
+    return _dropped
 
 
 def _sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def timed_call(fn, *args, iters=10, warmup=2, device="cuda", **kwargs):
-    """Device-synchronized benchmark of ``fn``; returns (mean_s, out). Each
-    call is followed by a synchronise of ``device`` (nothing to wait for on
-    the CPU), so the host clock covers the device's work."""
-    out = None
-    for _ in range(warmup):
-        out = fn(*args, **kwargs)
-        _sync(device)
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        out = fn(*args, **kwargs)
-        _sync(device)
-    return (time.perf_counter() - t0) / iters, out
 
 
 def pass_ms(fn, x, inner=20, device="cuda"):
@@ -89,8 +142,10 @@ def pass_ms(fn, x, inner=20, device="cuda"):
 @contextlib.contextmanager
 def profile_trace(logdir):
     """torch.profiler trace of the block: CPU activity, and CUDA activity
-    when CUDA is available. Writes ``logdir/trace_<pid>_<ns>.json``, a Chrome
-    trace (open it in chrome://tracing or Perfetto)."""
+    when CUDA is available, with the program's spans (``bndm.*`` ranges:
+    they are recorded while the profile records). Writes
+    ``logdir/trace_<pid>_<ns>.json``, a Chrome trace (open it in
+    chrome://tracing or Perfetto)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

@@ -23,7 +23,6 @@ import numpy as np
 import pytest
 import torch
 
-from bndm_tpu.utils import timing as jtiming
 from bndm_tpu_torch.ops import stream_probes as sp
 from bndm_tpu_torch.scripts import bench_elementwise, bench_stream
 from bndm_tpu_torch.utils import timing
@@ -280,30 +279,6 @@ def test_a_failing_bench_case_ends_the_run(mod, monkeypatch):
 # -------------------------------- timing --------------------------------------
 
 
-@pytest.mark.parametrize("times", [[], [0.5], [0.5, 0.125, 0.25, 1.0]])
-def test_timer_matches_jax(times):
-    """The same recorded times give the same mean (the first call left
-    out) and total as the JAX package's Timer."""
-    t, j = timing.Timer("a"), jtiming.Timer("a")
-    t.times, j.times = list(times), list(times)
-    np.testing.assert_equal(t.mean, j.mean)
-    assert t.total == j.total
-    with t.measure():
-        pass
-    assert len(t.times) == len(times) + 1 and t.times[-1] >= 0
-
-
-def test_timed_call_returns_the_output():
-    calls = []
-
-    def fn(a, b=1):
-        calls.append(1)
-        return a + b
-
-    mean_s, out = timing.timed_call(fn, torch.ones(3), b=2, iters=3, warmup=2, device="cpu")
-    assert torch.equal(out, torch.full((3,), 3.0)) and len(calls) == 5 and mean_s >= 0
-
-
 def test_pass_ms_chains_the_passes():
     seen = []
 
@@ -316,12 +291,16 @@ def test_pass_ms_chains_the_passes():
 
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
+    """The trace holds the block's ops and the program's spans."""
     with timing.profile_trace(str(tmp_path / "t")):
-        torch.ones(16).add_(1).sum()
+        with timing.span("phase"):
+            torch.ones(16).add_(1).sum()
+    timing.take_spans()
     (f,) = os.listdir(tmp_path / "t")
     with open(tmp_path / "t" / f) as fh:
         events = json.load(fh)["traceEvents"]
     assert any("add_" in e.get("name", "") for e in events)
+    assert any(e.get("name") == "bndm.phase" for e in events)
 
 
 # ----------------------------- --profile_dir ----------------------------------
