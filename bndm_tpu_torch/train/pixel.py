@@ -20,6 +20,11 @@ backpropagates its rows' share of the summed loss. The model's gradient is
 summed over the ranks by ``DistributedDataParallel``, the schedule's by one
 all-reduce, before the clip: the step is the global batch's, as JAX's
 sharded step is.
+
+On one CUDA device (:func:`graphs_unet`) the UNet's forward and backward,
+which make most of the step's launches, replay as captured CUDA graphs
+(:class:`UNetGraphs`): for that part of the step, the counterpart of the
+JAX step's one jitted program. The rest of the step stays eager.
 """
 
 from __future__ import annotations
@@ -160,6 +165,65 @@ def draw_noise(x, key, noise_type, engine):
     return torch.randn(shape, generator=gen, device=x.device)
 
 
+def graphs_unet(device, mesh, remat, training):
+    """Whether the train step replays the UNet as captured CUDA graphs: its
+    parameters on ``device`` of type CUDA, one process (no ``mesh``: DDP's
+    hooks run between the backward's kernels), no ``remat`` (the backward
+    recomputes the forward) and the model in ``training`` mode."""
+    return torch.device(device).type == "cuda" and mesh is None and not remat and training
+
+
+class _Call(torch.nn.Module):
+    """``model(inp, alpha)`` as a module of its own: ``make_graphed_callables``
+    replaces the forward of the module it is given, and the model's own
+    forward stays as it is."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, inp, alpha):
+        return self.model(inp, alpha)
+
+
+class UNetGraphs:
+    """``model(inp, alpha)`` and its backward as a pair of captured CUDA
+    graphs (``torch.cuda.make_graphed_callables``), replayed at every call:
+    a pair for each signature of the inputs (shape, dtype, requires_grad,
+    and whether grad mode is on), captured at its first call after the
+    warm-up that capture needs. The backward returns the input's gradient
+    too, where ``inp`` requires it.
+
+    The graphs read the parameters' storage: a change of it (a load that
+    assigns, a cast or a move) drops them. The parameters' ``.grad`` are the
+    backward graph's own buffers until the next replay, so the step sets
+    them to None before each forward (``zero_grad``), as the train step
+    does. ``captures`` counts the pairs captured, ``replays`` the calls."""
+
+    def __init__(self):
+        self.captures = 0
+        self.replays = 0
+        self._graphs = {}
+        self._storage = None
+
+    def __call__(self, model, inp, alpha):
+        storage = (model, tuple(p.data_ptr() for p in model.parameters()))
+        if storage != self._storage:
+            self._graphs.clear()
+            self._storage = storage
+        key = (torch.is_grad_enabled(),) + tuple(
+            (tuple(x.shape), x.dtype, x.requires_grad) for x in (inp, alpha))
+        graphed = self._graphs.get(key)
+        if graphed is None:
+            sample = tuple(x.detach().clone().requires_grad_(x.requires_grad)
+                           for x in (inp, alpha))
+            graphed = self._graphs[key] = torch.cuda.make_graphed_callables(_Call(model),
+                                                                            sample)
+            self.captures += 1
+        self.replays += 1
+        return graphed(inp, alpha)
+
+
 def make_train_step(cfg: TrainConfig, L, mesh=None):
     """Build the train step: ``train_step(state, batch01, key) -> metrics``.
 
@@ -179,6 +243,7 @@ def make_train_step(cfg: TrainConfig, L, mesh=None):
     correlated = cfg.noise_type in ("gaussianBN", "gaussianRN", "GBN")
 
     count = data_shard(mesh)[1]
+    unet_graph = UNetGraphs()
 
     def loss_fn(model, sched_params, x1, t, noise):
         """This rank's share of the step's loss: the sum over its rows
@@ -204,7 +269,10 @@ def make_train_step(cfg: TrainConfig, L, mesh=None):
         inp = x_alpha
         if cfg.conditional:
             inp = torch.cat([x_alpha, superres_condition(x1_paired)], dim=1)
-        if cfg.remat:
+        if graphs_unet(next(model.parameters()).device, mesh, cfg.remat, model.training):
+            with span("train.unet_graph"):
+                d = unet_graph(model, inp, alpha)
+        elif cfg.remat:
             d = checkpoint(model, inp, alpha, use_reentrant=False)
         else:
             d = model(inp, alpha)
@@ -283,6 +351,7 @@ def make_train_step(cfg: TrainConfig, L, mesh=None):
     train_step.draw = draw
     train_step.compute_grads = compute_grads
     train_step.apply_gradients = apply_gradients
+    train_step.unet_graph = unet_graph  # its .captures and .replays
     return train_step, init_state
 
 

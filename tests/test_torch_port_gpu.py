@@ -312,6 +312,153 @@ def test_train_loss_on_card_matches_cpu(noise_type, outc, engine):
         torch.testing.assert_close(gg[k], gc[k], rtol=1e-3, atol=1e-3 * scale[module[k]])
 
 
+# ------------------- the pixel train step's UNet as CUDA graphs ---------------
+
+
+def _graph_trainers(dtype="float32", conditional=False):
+    """Two pixel trainers on the card from the same weights and state (the
+    tiny UNet, (tau, s, e) learnable, K2's draw, the clip): the train step
+    replays the UNet's graphs in both but where :func:`_eager_step` runs
+    it eagerly."""
+    from bndm_tpu_torch.cli.common import disable_tf32
+    from bndm_tpu_torch.models.unet2d import UNet2D, UNet2DConfig
+    from bndm_tpu_torch.train.pixel import PixelTrainer, TrainConfig
+
+    _cuda_or_skip()
+    disable_tf32()
+    cfg = TrainConfig(nb_steps=100, noise_type="gaussianBN", scheduler_gamma="sigmoid",
+                      gamma_defaults=(0.5, -0.3, 2.0), optimize_scheduler_param=True,
+                      out_channel=6, grad_clip=1.0, conditional=conditional)
+    ucfg = UNet2DConfig(**TINY, in_channels=6 if conditional else 3, out_channels=6,
+                        dtype=dtype)
+    torch.manual_seed(0)
+    weights = UNet2D(ucfg).state_dict()
+    L = _random_L(4096, 5)
+    trainers = []
+    for _ in range(2):
+        model = UNet2D(ucfg, device="cuda")
+        model.load_state_dict(weights)
+        trainers.append(PixelTrainer(model.train(), cfg, L, seed=3))
+    return trainers
+
+
+def _eager_step(monkeypatch, trainer, batch, key):
+    from bndm_tpu_torch.train import pixel
+
+    with monkeypatch.context() as m:
+        m.setattr(pixel, "graphs_unet", lambda *args: False)
+        return trainer.step(batch, key)
+
+
+def _batch(n, seed):
+    return torch.rand(n, 3, 64, 64, generator=torch.Generator().manual_seed(seed)).cuda()
+
+
+def _assert_rel(got, want, what, rel=1e-6):
+    """``got`` within ``rel`` of ``want`` in norm."""
+    err = float((got.detach().double() - want.detach().double()).norm())
+    assert err <= rel * float(want.detach().double().norm()), (what, err, float(want.norm()))
+
+
+def _assert_tree_rel(got, want, rel=1e-6):
+    """Each leaf of ``got`` (name: tensor) within ``rel`` of ``want``'s in
+    norm, relative to the largest norm among its module's leaves: the key
+    projection's bias has a gradient of exactly zero (the softmax is blind
+    to it), its rounding noise is on the scale of the kernel's gradient, and
+    AdamW turns that noise into steps of the learning rate's size."""
+    want = {k: v.detach().double() for k, v in want.items()}
+    scale = {}
+    for k, v in want.items():
+        module = k.rsplit(".", 1)[0]
+        scale[module] = max(scale.get(module, 0.0), float(v.norm()))
+    for k, v in want.items():
+        err = float((got[k].detach().double() - v).norm())
+        assert err <= rel * scale[k.rsplit(".", 1)[0]], (k, err, float(v.norm()))
+
+
+def _grads(trainer):
+    return {k: p.grad for k, p in trainer.model.named_parameters()}
+
+
+def _counts(trainer):
+    graphs = trainer.train_step.unet_graph
+    return graphs.captures, graphs.replays
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_train_step_equals_the_eager_one(monkeypatch, dtype):
+    """From the same state, the graphed step and the eager one give the
+    same loss, every gradient (the schedule's through the input's gradient
+    and K3 too) and, after 3 steps, the same parameters; K2 runs once a
+    step in both."""
+    graphed, eager = _graph_trainers(dtype)
+    batch = _batch(4, 7)
+    for k in range(3):
+        before = fused_bluenoise_flat.launches
+        lg = graphed.step(batch, (1, k))["loss"]
+        assert fused_bluenoise_flat.launches == before + 1
+        le = _eager_step(monkeypatch, eager, batch, (1, k))["loss"]
+        _assert_rel(lg, le, f"loss {k}")
+        if k == 0:
+            _assert_tree_rel(_grads(graphed), _grads(eager))
+            assert float(eager.state.sched_params.grad.abs().sum()) > 0
+            _assert_rel(graphed.state.sched_params.grad, eager.state.sched_params.grad,
+                        "sched_params.grad")
+    _assert_tree_rel(dict(graphed.model.named_parameters()), dict(eager.model.named_parameters()))
+    _assert_rel(graphed.state.sched_params, eager.state.sched_params, "sched_params")
+    assert _counts(graphed) == (1, 3) and _counts(eager) == (0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("conditional", [False, True])
+def test_a_second_input_shape_captures_a_second_graph(monkeypatch, conditional):
+    """A short batch between full ones (and the super-res step's 6-channel
+    input) captures its own pair of graphs; each step equals the eager
+    one."""
+    graphed, eager = _graph_trainers(conditional=conditional)
+    for k, n in enumerate((4, 2, 4)):
+        batch = _batch(n, 8 + k)
+        lg = graphed.step(batch, (2, k))["loss"]
+        _assert_rel(lg, _eager_step(monkeypatch, eager, batch, (2, k))["loss"], f"loss {k}")
+    _assert_tree_rel(dict(graphed.model.named_parameters()), dict(eager.model.named_parameters()))
+    assert _counts(graphed) == (2, 3)
+
+
+@pytest.mark.gpu
+def test_eval_sampling_and_loads_between_graphed_steps(monkeypatch):
+    """Sampling with the model in eval mode, a resume's load in place (the
+    graphs kept) and a load that assigns new tensors (the graphs dropped
+    and captured again) leave the next graphed step equal to the eager
+    one."""
+    import copy
+
+    from bndm_tpu_torch.samplers.iadb import sample_iadb
+
+    graphed, eager = _graph_trainers()
+    batch = _batch(4, 11)
+    start = copy.deepcopy(graphed.state.state_dict())
+    graphed.step(batch, (3, 0))
+    _eager_step(monkeypatch, eager, batch, (3, 0))
+    x0 = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(12)).cuda()
+    for t in (graphed, eager):
+        t.model.eval()
+        with torch.no_grad():
+            s, _ = sample_iadb(t.model, x0, nb_steps=4, two_head=True)
+        assert torch.isfinite(s).all()
+        t.model.train()
+        t.state.load_state_dict(copy.deepcopy(start))
+    lg = graphed.step(batch, (3, 1))["loss"]
+    _assert_rel(lg, _eager_step(monkeypatch, eager, batch, (3, 1))["loss"], "after the load")
+    _assert_tree_rel(_grads(graphed), _grads(eager))
+    assert _counts(graphed) == (1, 2)
+    for t in (graphed, eager):
+        t.model.load_state_dict({k: v.clone() for k, v in start["model"].items()}, assign=True)
+    lg = graphed.step(batch, (3, 2))["loss"]
+    _assert_rel(lg, _eager_step(monkeypatch, eager, batch, (3, 2))["loss"], "after assign")
+    assert _counts(graphed) == (2, 3)
+
+
 # ------------------------- P1-P3: the streaming probes -----------------------
 
 

@@ -308,6 +308,67 @@ def test_checkpoint_resume_equals_uninterrupted(small_L, tmp_path):
     assert CheckpointManager(str(tmp_path / "empty")).restore(resumed.state) is None
 
 
+# ----------------------- the UNet as CUDA graphs -----------------------------
+
+
+@pytest.mark.parametrize("device,mesh,remat,training,engages", [
+    ("cuda", None, False, True, True),
+    ("cuda:1", None, False, True, True),
+    ("cpu", None, False, True, False),
+    ("cuda", "a mesh", False, True, False),
+    ("cuda", None, True, True, False),
+    ("cuda", None, False, False, False),
+])
+def test_unet_graphs_engage_on_one_cuda_device_in_training(device, mesh, remat, training,
+                                                           engages):
+    assert tp.graphs_unet(torch.device(device), mesh, remat, training) is engages
+
+
+def test_a_cpu_train_step_never_captures(small_L):
+    cfg = tp.TrainConfig(nb_steps=T, noise_type="gaussianBN", scheduler_gamma="sigmoid",
+                         gamma_defaults=(0.2, 0.0, 3.0), optimize_scheduler_param=True,
+                         out_channel=6)
+    tr = tp.PixelTrainer(P.UNet2D(P.UNet2DConfig(**PLAIN, out_channels=6)), cfg, small_L)
+    for s in range(2):
+        tr.step(torch.full((2, 3, 64, 64), 0.5), (0, s))
+    graphs = tr.train_step.unet_graph
+    assert (graphs.captures, graphs.replays) == (0, 0)
+
+
+def test_unet_graphs_capture_once_per_signature_and_storage(monkeypatch):
+    """One capture for each signature of the inputs (shape, dtype,
+    requires_grad, grad mode), replays after it; a load in place keeps the
+    graphs, one that assigns new tensors, or another model, drops them.
+    The capture is faked: the module it is given runs eagerly."""
+    captured = []
+    monkeypatch.setattr(torch.cuda, "make_graphed_callables",
+                        lambda module, sample: captured.append(sample) or module)
+    torch.manual_seed(0)
+    model = P.UNet2D(P.UNet2DConfig(**PLAIN, out_channels=6))
+    graphs = tp.UNetGraphs()
+    x, a = torch.randn(2, 3, 16, 16, requires_grad=True), torch.rand(2)
+    out = graphs(model, x, a)
+    torch.testing.assert_close(out, model(x, a), rtol=0, atol=0)
+    assert captured[0][0] is not x and torch.equal(captured[0][0], x)
+    assert captured[0][0].requires_grad and not captured[0][1].requires_grad
+    graphs(model, x * 2, a)
+    assert (graphs.captures, graphs.replays) == (1, 2)
+    graphs(model, x[:1], a[:1])  # a short batch
+    graphs(model, x.detach(), a)  # an input without grad
+    graphs(model, x.double(), a)
+    with torch.no_grad():
+        graphs(model, x, a)
+    assert (graphs.captures, graphs.replays) == (5, 6)
+    model.load_state_dict(model.state_dict())
+    graphs(model, x, a)
+    assert graphs.captures == 5
+    model.load_state_dict({k: v.clone() for k, v in model.state_dict().items()}, assign=True)
+    graphs(model, x, a)
+    assert graphs.captures == 6
+    graphs(P.UNet2D(P.UNet2DConfig(**PLAIN, out_channels=6)), x, a)
+    assert (graphs.captures, graphs.replays) == (7, 9)
+
+
 # ------------------------------- loader --------------------------------------
 
 
