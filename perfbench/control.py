@@ -16,6 +16,14 @@ reads on the numbers each cell compares.
   decode with its operands rounded to float8 e4m3 in the program's place,
   of that chain's final latents. The program's readings at the same inputs
   beside them.
+* The cached sampling cell: the same, along the feature-reuse chain at the
+  cell's ``cache_interval`` and ``cache_depth``: the int8-static program's
+  full forward at the kept full steps and its outer shell at the kept shell
+  steps (around the trunk output the bf16 chain's shell was given), the
+  reference shell with its operands rounded to float8 e4m3 beside it
+  (``control_fp8_shell``), and the fp8 decode.
+
+Every driver but the two sampling ones takes the training cells' control.
 
     python3 -m perfbench.control --workload <cell> --seeds 1 2 3
 
@@ -88,15 +96,65 @@ def sample_control(ctx, driver):
                         "decode_gap": driver.decode_gap(P_v, cfg["vae"], z, imgs, rows)}}
 
 
+def cached_control(ctx, driver):
+    import dataclasses
+
+    from bndm_tpu_torch.ops.int8 import calibrate_sampling
+    from bndm_tpu_torch.samplers.iadb import sample_iadb_cached
+    from bndm_tpu_torch.serving import cached_forwards, serving_model_pair
+
+    from perfbench import datagen, weights
+    from perfbench.drivers import _port
+    from perfbench.drivers import sample_latent as plain
+    from perfbench.reference import nets, sample
+
+    cfg, tr, dev = ctx.config, ctx.traffic, ctx.device
+    u_spec = nets.unet_spec(cfg["unet"])
+    dt = getattr(torch, cfg["weights_dtype"])
+    init = weights.make(u_spec, ctx.seed, dev, dt)
+    depth, every = tr["cache_depth"], tr["cache_interval"]
+    mcfg = dataclasses.replace(_port.unet_config(cfg["port"]), cache_depth=depth)
+    _, served = serving_model_pair(mcfg, init, device=dev)
+    m_cal, int8 = serving_model_pair(mcfg, init, device=dev, conv_int8=True, int8_static=True)
+    res, bs, steps = cfg["unet"]["sample_size"], tr["batch_size"], tr["steps"]
+    x_cal = datagen.normal(ctx.seed, 3, (min(4, bs), cfg["unet"]["in_channels"], res, res), dev)
+    int8.load_quant(calibrate_sampling(m_cal, x_cal, steps, two_head=True))
+    del m_cal
+    keep = driver.picks(ctx.seed, steps, tr["checked_steps"], every)
+    rec = driver._Recorder(*cached_forwards(served), set(keep))
+    x0 = datagen.normal(ctx.seed, 2, (1, bs, cfg["unet"]["in_channels"], res, res), dev)[0]
+    z = sample_iadb_cached(rec.full, rec.shallow, x0, nb_steps=steps, cache_interval=every,
+                           two_head=True)
+    full, shell = driver.split(rec.kept)
+    P_u = plain.unet_weights(ctx, u_spec)
+    readings = {
+        "control": {"unet_gap": max(plain.unet_gaps(P_u, cfg["unet"], full, int8)),
+                    "shallow_gap": max(driver.shell_gaps(P_u, cfg["unet"], shell, depth,
+                                                         model=int8))},
+        "control_fp8_shell": {"shallow_gap": max(driver.shell_gaps(P_u, cfg["unet"], shell,
+                                                                   depth, nets.fp8))},
+        "program": {"unet_gap": max(plain.unet_gaps(P_u, cfg["unet"], full)),
+                    "shallow_gap": max(driver.shell_gaps(P_u, cfg["unet"], shell, depth))}}
+    del served, int8, rec, full, shell, P_u
+    _, decode = plain.build_program(ctx)
+    imgs = sample.to_uint8(decode(z))
+    P_v = plain.vae_weights(ctx)
+    rows = tr["reference_rows"]
+    readings["control"]["decode_gap"] = plain.decode_gap(P_v, cfg["vae"], z, imgs, rows, nets.fp8)
+    readings["program"]["decode_gap"] = plain.decode_gap(P_v, cfg["vae"], z, imgs, rows)
+    return readings
+
+
+CONTROLS = {"sample_latent": sample_control, "sample_latent_cached": cached_control}
+
+
 def control(workload, seed, device="cuda", config=None, traffic=None):
     from perfbench import run
 
     ctx, driver = run.make_ctx(workload, seed, 0.0, 0, device, config, traffic)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if ctx.traffic["driver"] == "sample_latent":
-        return sample_control(ctx, driver)
-    return train_control(ctx, driver)
+    return CONTROLS.get(ctx.traffic["driver"], train_control)(ctx, driver)
 
 
 def main(argv=None):

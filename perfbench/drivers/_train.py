@@ -30,7 +30,7 @@ from torch.profiler import record_function
 
 from perfbench import harness, weights
 from perfbench.harness import SPAN
-from perfbench.reference import nets, train
+from perfbench.reference import model_of, nets, train
 
 
 def _norms(tensors):
@@ -94,7 +94,7 @@ def run(ctx, make_program):
     batch = tr["batch_size"]
     rec = {"steps": steps, "seconds": t1 - t0, "host_cpu_s": c1 - c0,
            "step_p95_ms": 1e3 * harness.p95(intervals) if intervals else None,
-           "flops_per_step": 3 * ctx.flops_forward(batch)}
+           "flops_per_step": 3 * ctx.flops.model_forward(cfg, batch)}
     trace = None
     if ctx.trace:
         def traced():
@@ -132,13 +132,15 @@ def run(ctx, make_program):
 
 def reference_steps(ctx, n, q=nets.exact, keep=None):
     """The reference's (losses, first-gradient norms, change norms) over the
-    first ``n`` steps, from the seed's initial weights, with ``q`` applied
+    first ``n`` steps of the configuration's model (``model_of``), from the
+    seed's initial weights (the driver's ``inputs``), with ``q`` applied
     to every operand of a product (the identity; a lower precision for the
     control) and ``keep`` samples of each batch (all; half for a fault)."""
     inp = ctx.inputs
+    forward, _, settings = model_of(ctx.config)
     P = weights.make(inp.spec, ctx.seed, ctx.device)
     P0 = {k: v.clone() for k, v in P.items()}
-    losses, first, P = train.run_steps(P, inp.unet_cfg, ctx.config["train"], inp.data(n),
+    losses, first, P = train.run_steps(P, forward, settings, ctx.config["train"], inp.data(n),
                                        [(ctx.seed, k) for k in range(n)], inp.L, q, keep)
     return (losses, {k: float(g.norm()) for k, g in first.items()},
             {k: float((P[k] - P0[k]).norm()) for k in P})

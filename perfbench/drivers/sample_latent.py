@@ -22,6 +22,7 @@ the reference decode of the program's final latents against its images
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import time
 
@@ -63,17 +64,20 @@ def _picks(seed, nb_steps, count):
     return sorted(picks | {i + 1 for i in picks if i + 1 < nb_steps})
 
 
-def build_program(ctx):
+def build_program(ctx, **unet_changes):
     """The program's serving UNet (``serving.build_model``: cast to bf16,
     eval) and decoder (``make_decoder`` in the cell's chunks), loaded with
-    the seed's weights in the configuration's served type."""
+    the seed's weights in the configuration's served type.
+    ``unet_changes``: fields of the UNet's config set as a serving flag
+    sets them (``cache_depth``)."""
     from bndm_tpu_torch.models.vae import AutoencoderKL, make_decoder
     from bndm_tpu_torch.serving import build_model
 
     cfg, port = ctx.config, ctx.config["port"]
     dt = getattr(torch, cfg["weights_dtype"])
     init = weights.make(nets.unet_spec(cfg["unet"]), ctx.seed, ctx.device, dt)
-    unet = build_model(_port.unet_config(port), init, ctx.device)
+    mcfg = dataclasses.replace(_port.unet_config(port), **unet_changes)
+    unet = build_model(mcfg, init, ctx.device)
     vae = AutoencoderKL(_port.vae_config(port), device="meta")
     vae = vae.to_empty(device=ctx.device)
     vae.load_state_dict(_vae_init(ctx, weights.spec_of(vae)), strict=True)
@@ -201,6 +205,21 @@ def unet_gaps(P_u, unet_cfg, kept, model=None):
     return out
 
 
+def update_gaps(kept, keep, z, da, dg):
+    """The worst kept step's gap between the sampler's update (the next kept
+    step's input, or the chain's result ``z`` after the last step) and the
+    reference's update of the step's input and model output, relative to the
+    reference's step. ``kept[i]`` begins with (x, t, d)."""
+    worst = 0.0
+    for i in keep:
+        x, d = kept[i][0], kept[i][2]
+        nxt = kept[i + 1][0] if i + 1 in kept else (z if i == len(da) - 1 else None)
+        if nxt is not None:
+            ref = sample.update(x.float(), d.float(), da[i], dg[i])
+            worst = max(worst, float((nxt.float() - ref).norm() / (ref - x.float()).norm()))
+    return worst
+
+
 def unet_weights(ctx, u_spec):
     dt = getattr(torch, ctx.config["weights_dtype"])
     return {k: v.float() for k, v in weights.make(u_spec, ctx.seed, ctx.device, dt).items()}
@@ -218,13 +237,7 @@ def _check(ctx, done, x0s, keep):
         z, kept, imgs = done[b]
         start = max(start, float((kept[0][0] - x0s[b % len(x0s)]).abs().max()))
         unet_gap = max([unet_gap] + unet_gaps(P_u, ctx.config["unet"], kept))
-        for i in keep:
-            x, _, d = kept[i]
-            nxt = kept[i + 1][0] if i + 1 in kept else (z if i == len(da) - 1 else None)
-            if nxt is not None:
-                ref = sample.update(x.float(), d.float(), da[i], dg[i])
-                update_gap = max(update_gap, float((nxt.float() - ref).norm()
-                                                   / (ref - x.float()).norm()))
+        update_gap = max(update_gap, update_gaps(kept, keep, z, da, dg))
     if picked:
         P_v = vae_weights(ctx)
         for b in picked:

@@ -19,21 +19,28 @@ import torch
 
 from perfbench import datagen, harness, weights
 from perfbench.drivers import _port, _train
-from perfbench.reference import nets, noise
+from perfbench.reference import model_of, noise
+
+
+def unet_model(ctx, init):
+    """The program's ``UNet2D`` of the configuration's ``port`` entry on the
+    run's device, loaded with ``init``."""
+    from bndm_tpu_torch.models.unet2d import UNet2D
+
+    model = UNet2D(_port.unet_config(ctx.config["port"]), device="meta").to_empty(
+        device=ctx.device)
+    model.load_state_dict(init, strict=True)
+    return model
 
 
 class _Program:
-    def __init__(self, ctx, latents, L, init):
+    def __init__(self, ctx, latents, L, model):
         from bndm_tpu_torch.data.latent_cache import LatentCacheDataset, LatentCacheWriter
-        from bndm_tpu_torch.models.unet2d import UNet2D
         from bndm_tpu_torch.ops import cuda_bluenoise
         from bndm_tpu_torch.train.latent import LatentTrainConfig, make_latent_train_step
         from bndm_tpu_torch.train.schedules_lr import hf_adamw
 
         port, spec = ctx.config["port"], ctx.config["train"]
-        mcfg = _port.unet_config(port)
-        model = UNet2D(mcfg, device="meta").to_empty(device=ctx.device)
-        model.load_state_dict(init, strict=True)
         args = types.SimpleNamespace(
             gradient_accumulation_steps=1, lr_scheduler=spec["lr_scheduler"],
             learning_rate=spec["lr"], lr_warmup_steps=spec["lr_warmup_steps"],
@@ -57,7 +64,7 @@ class _Program:
         self.batch, self.seed, self.device = ctx.traffic["batch_size"], ctx.seed, ctx.device
         self.epoch, self.it = 0, None
         self._k1 = cuda_bluenoise.tri_matmul
-        self.m = self.batch * mcfg.in_channels
+        self.m = self.batch * latents.shape[1]
 
     def next_batch(self):
         while True:
@@ -95,12 +102,14 @@ def epoch_batches(latents, seed, epoch, batch_size, count):
 
 def inputs(ctx):
     """What set-up makes from the seed and hands to the program and to the
-    reference: the cache's latents (float16, on the host), the blue-noise
-    factor, the model's spec; and the batches of the first steps as the
-    cache's rules give them."""
-    unet_cfg, tr = ctx.config["unet"], ctx.traffic
-    res, bs = unet_cfg["sample_size"], tr["batch_size"]
-    shape = (tr["latents"], unet_cfg["in_channels"], res, res)
+    reference: the cache's latents (float16, on the host, of the shape the
+    configuration's ``reference`` entry gives as its ``input``), the
+    blue-noise factor, the model's spec (``model_of``); and the batches of
+    the first steps as the cache's rules give them."""
+    tr = ctx.traffic
+    bs = tr["batch_size"]
+    _, spec, settings = model_of(ctx.config)
+    shape = (tr["latents"], *ctx.config["reference"]["input"])
     latents = datagen.normal(ctx.seed, 1, shape, ctx.device, torch.float16).cpu().numpy()
 
     def data(n):
@@ -109,12 +118,13 @@ def inputs(ctx):
             out += epoch_batches(latents, ctx.seed, epoch, bs, min(nb, n - epoch * nb))
         return [x.to(ctx.device) for x in out]
 
-    return types.SimpleNamespace(unet_cfg=unet_cfg, spec=nets.unet_spec(unet_cfg), res=res,
-                                 L=noise.make_L(device=ctx.device), latents=latents, data=data)
+    return types.SimpleNamespace(spec=spec(settings), L=noise.make_L(device=ctx.device),
+                                 latents=latents, data=data)
 
 
-def run(ctx):
+def run(ctx, build_model=unet_model):
+    """The cell's run; ``build_model(ctx, init)`` builds the program's model
+    (a configuration of another backbone passes its own)."""
     inp = ctx.inputs = inputs(ctx)
-    ctx.flops_forward = lambda b: ctx.flops.unet_forward(inp.unet_cfg, b, inp.res)
-    return _train.run(ctx, lambda: _Program(ctx, inp.latents, inp.L,
-                                            weights.make(inp.spec, ctx.seed, ctx.device)))
+    return _train.run(ctx, lambda: _Program(
+        ctx, inp.latents, inp.L, build_model(ctx, weights.make(inp.spec, ctx.seed, ctx.device))))

@@ -14,7 +14,7 @@ import torch
 
 from perfbench import datagen, harness, weights
 from perfbench.drivers import _port, _train
-from perfbench.reference import nets, noise
+from perfbench.reference import model_of, noise
 
 
 class _Program:
@@ -89,21 +89,21 @@ def epoch_batches(images, seed, epoch, batch_size, count):
 
 def inputs(ctx):
     """What set-up makes from the seed and hands to the program and to the
-    reference: the images, the blue-noise factor, the model's spec; and the
+    reference: the images (of the configuration's ``reference`` input
+    size), the blue-noise factor, the model's spec (``model_of``); and the
     batches of the first steps as the loader's rules give them."""
-    unet_cfg = ctx.config["unet"]
-    res, bs = unet_cfg["sample_size"], ctx.traffic["batch_size"]
+    _, spec, settings = model_of(ctx.config)
+    res, bs = ctx.config["reference"]["input"][-1], ctx.traffic["batch_size"]
     images = datagen.procedural_images(ctx.seed, ctx.traffic["images"], res, ctx.device)
 
     def data(n):
         return [2.0 * x.to(ctx.device) - 1.0 for x in epoch_batches(images, ctx.seed, 0, bs, n)]
 
-    return types.SimpleNamespace(unet_cfg=unet_cfg, spec=nets.unet_spec(unet_cfg), res=res,
-                                 L=noise.make_L(device=ctx.device), images=images, data=data)
+    return types.SimpleNamespace(spec=spec(settings), L=noise.make_L(device=ctx.device),
+                                 images=images, data=data)
 
 
 def run(ctx):
     inp = ctx.inputs = inputs(ctx)
-    ctx.flops_forward = lambda b: ctx.flops.unet_forward(inp.unet_cfg, b, inp.res)
     return _train.run(ctx, lambda: _Program(ctx, inp.images, inp.L,
                                             weights.make(inp.spec, ctx.seed, ctx.device)))

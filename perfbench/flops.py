@@ -7,11 +7,12 @@ attention's two products, nothing elementwise."""
 from __future__ import annotations
 
 import functools
+import json
 
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from perfbench.reference import nets
+from perfbench.reference import model_of, nets
 
 
 def _meta(spec):
@@ -35,6 +36,38 @@ def _unet(key, batch, res):
 def unet_forward(cfg, batch, res):
     """FLOPs of one UNet forward of ``cfg`` at (batch, res, res)."""
     return _unet(_key(cfg), batch, res)
+
+
+def model_forward(config, batch):
+    """FLOPs of one forward of the model that ``config``'s ``reference``
+    entry names, at ``batch`` inputs of its ``input`` shape."""
+    forward, spec, settings = model_of(config)
+    return _model(forward, spec, json.dumps(settings, sort_keys=True),
+                  tuple(config["reference"]["input"]), batch)
+
+
+@functools.cache
+def _model(forward, spec, settings, shape, batch):
+    settings = json.loads(settings)
+    x = torch.empty((batch, *shape), device="meta")
+    t = torch.empty((batch,), device="meta")
+    return _count(forward, _meta(spec(settings)), settings, x, t, nets.exact)
+
+
+@functools.cache
+def _shell(key, batch, res, depth):
+    cfg = dict(key)
+    P = _meta(nets.unet_spec(cfg))
+    x = torch.empty((batch, cfg["in_channels"], res, res), device="meta")
+    t = torch.empty((batch,), device="meta")
+    _, deep = nets.unet(P, cfg, x, t, depth=depth)
+    return _count(nets.unet_shell, P, cfg, x, t, deep, depth)
+
+
+def unet_shell_forward(cfg, batch, res, depth):
+    """FLOPs of one outer-shell forward of ``cfg`` at (batch, res, res)
+    around a trunk output of ``depth``."""
+    return _shell(_key(cfg), batch, res, depth)
 
 
 @functools.cache

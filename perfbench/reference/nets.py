@@ -10,7 +10,9 @@ self-attention after each resnet of an attention block (heads of
 ``attention_head_dim`` channels, softmax in float32), a stride-2 3x3 conv
 to go down; the middle block resnet, attention, resnet; up blocks of
 ``layers_per_block + 1`` resnets over the concatenated skips, nearest 2x
-and a 3x3 conv to go up; GroupNorm, SiLU, 3x3 conv_out. The decoder:
+and a 3x3 conv to go up; GroupNorm, SiLU, 3x3 conv_out. Its outer shell
+(``unet_shell``) runs the outermost blocks around a given trunk output, as
+the feature-reuse sampler's cached steps do. The decoder:
 post_quant_conv (1x1) of ``z / 0.18215``, conv_in, the middle block with
 one single-head attention over all channels, four up blocks of three
 resnets (without a time embedding), GroupNorm, SiLU, conv_out.
@@ -81,41 +83,89 @@ def timestep_embedding(t, dim, max_period=10000.0):
     return torch.cat([torch.cos(emb), torch.sin(emb)], dim=-1)
 
 
-def unet(P, cfg, x, t, q=exact):
-    """The UNet of ``cfg`` (the configuration file's ``unet`` entry):
-    ``x`` (B, in, H, W) and timesteps ``t`` (B,) -> (B, out, H, W)."""
-    boc = cfg["block_out_channels"]
-    n, per = len(boc), cfg["layers_per_block"]
-    groups, eps, hd = cfg["norm_num_groups"], cfg["norm_eps"], cfg["attention_head_dim"]
-    temb = timestep_embedding(t, boc[0])
-    temb = linear(P, "time_embedding.linear_2",
+def _embedding(P, cfg, t, q):
+    temb = timestep_embedding(t, cfg["block_out_channels"][0])
+    return linear(P, "time_embedding.linear_2",
                   F.silu(linear(P, "time_embedding.linear_1", temb, q)), q)
+
+
+def _down_block(P, cfg, i, h, temb, skips, q, downsample):
+    """Down block ``i``: its resnets (and attentions), each output kept in
+    ``skips``; then, where ``downsample``, the stride-2 conv, kept too."""
+    groups, eps, hd = cfg["norm_num_groups"], cfg["norm_eps"], cfg["attention_head_dim"]
+    pre = f"down_blocks.{i}"
+    for j in range(cfg["layers_per_block"]):
+        h = resnet(P, f"{pre}.resnets.{j}", h, temb, q, groups, eps)
+        if cfg["down_block_types"][i] == "AttnDownBlock2D":
+            h = attention(P, f"{pre}.attentions.{j}", h, q, hd, groups, eps)
+        skips.append(h)
+    if downsample:
+        h = conv(P, f"{pre}.downsamplers.0.conv", h, q, stride=2)
+        skips.append(h)
+    return h
+
+
+def _up_block(P, cfg, i, h, temb, skips, q):
+    """Up block ``i``: its resnets over the concatenated skips (and
+    attentions), then, but for the last block, nearest 2x and a conv."""
+    groups, eps, hd = cfg["norm_num_groups"], cfg["norm_eps"], cfg["attention_head_dim"]
+    pre = f"up_blocks.{i}"
+    for j in range(cfg["layers_per_block"] + 1):
+        h = resnet(P, f"{pre}.resnets.{j}", torch.cat([h, skips.pop()], dim=1), temb, q,
+                   groups, eps)
+        if cfg["up_block_types"][i] == "AttnUpBlock2D":
+            h = attention(P, f"{pre}.attentions.{j}", h, q, hd, groups, eps)
+    if i < len(cfg["block_out_channels"]) - 1:
+        h = conv(P, f"{pre}.upsamplers.0.conv", F.interpolate(h, scale_factor=2.0), q)
+    return h
+
+
+def _out(P, cfg, h, q):
+    h = F.silu(group_norm(P, "conv_norm_out", h, cfg["norm_num_groups"], cfg["norm_eps"]))
+    return conv(P, "conv_out", h, q)
+
+
+def unet(P, cfg, x, t, q=exact, depth=None):
+    """The UNet of ``cfg`` (the configuration file's ``unet`` entry):
+    ``x`` (B, in, H, W) and timesteps ``t`` (B,) -> (B, out, H, W).
+    ``depth``: also return the trunk output at that depth, the input of the
+    outermost ``depth`` up blocks (see :func:`unet_shell`)."""
+    groups, eps, hd = cfg["norm_num_groups"], cfg["norm_eps"], cfg["attention_head_dim"]
+    n = len(cfg["block_out_channels"])
+    temb = _embedding(P, cfg, t, q)
     h = conv(P, "conv_in", x, q)
     skips = [h]
     for i in range(n):
-        pre = f"down_blocks.{i}"
-        for j in range(per):
-            h = resnet(P, f"{pre}.resnets.{j}", h, temb, q, groups, eps)
-            if cfg["down_block_types"][i] == "AttnDownBlock2D":
-                h = attention(P, f"{pre}.attentions.{j}", h, q, hd, groups, eps)
-            skips.append(h)
-        if i < n - 1:
-            h = conv(P, f"{pre}.downsamplers.0.conv", h, q, stride=2)
-            skips.append(h)
+        h = _down_block(P, cfg, i, h, temb, skips, q, downsample=i < n - 1)
     h = resnet(P, "mid_block.resnets.0", h, temb, q, groups, eps)
     h = attention(P, "mid_block.attentions.0", h, q, hd, groups, eps)
     h = resnet(P, "mid_block.resnets.1", h, temb, q, groups, eps)
-    for i in range(n):
-        pre = f"up_blocks.{i}"
-        for j in range(per + 1):
-            h = resnet(P, f"{pre}.resnets.{j}", torch.cat([h, skips.pop()], dim=1), temb, q,
-                       groups, eps)
-            if cfg["up_block_types"][i] == "AttnUpBlock2D":
-                h = attention(P, f"{pre}.attentions.{j}", h, q, hd, groups, eps)
-        if i < n - 1:
-            h = conv(P, f"{pre}.upsamplers.0.conv", F.interpolate(h, scale_factor=2.0), q)
-    h = F.silu(group_norm(P, "conv_norm_out", h, groups, eps))
-    return conv(P, "conv_out", h, q)
+    for i in range(n - (depth or 0)):
+        h = _up_block(P, cfg, i, h, temb, skips, q)
+    deep = h
+    for i in range(n - (depth or 0), n):
+        h = _up_block(P, cfg, i, h, temb, skips, q)
+    out = _out(P, cfg, h, q)
+    return (out, deep) if depth else out
+
+
+def unet_shell(P, cfg, x, t, deep, depth=1, q=exact):
+    """The outer shell of :func:`unet` around a trunk output ``deep`` (the
+    feature-reuse forward): conv_in, down blocks [0, depth) for their skips
+    (the last of them without its downsampler, whose output feeds only the
+    trunk), ``deep`` in place of the trunk, up blocks [n - depth, n) and
+    conv_out. With the trunk output of the same (x, t) this is :func:`unet`;
+    a cached step passes an earlier step's."""
+    n = len(cfg["block_out_channels"])
+    temb = _embedding(P, cfg, t, q)
+    h = conv(P, "conv_in", x, q)
+    skips = [h]
+    for i in range(depth):
+        h = _down_block(P, cfg, i, h, temb, skips, q, downsample=i < depth - 1)
+    h = deep
+    for i in range(n - depth, n):
+        h = _up_block(P, cfg, i, h, temb, skips, q)
+    return _out(P, cfg, h, q)
 
 
 def vae_decode(P, cfg, z, q=exact):

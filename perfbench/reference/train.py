@@ -48,11 +48,13 @@ def cosine_lr(step, base, warmup, total):
     return float(f(base) * max(f(0), f(0.5) * (f(1) + np.cos(f(math.pi) * progress))))
 
 
-def loss_and_grads(P, unet_cfg, spec, data, key, L, q=nets.exact, rows=16, keep=None):
+def loss_and_grads(P, forward, settings, spec, data, key, L, q=nets.exact, rows=16,
+                   keep=None):
     """The step's summed loss and the gradient of every entry of ``P``, in
-    blocks of ``rows`` samples (the loss is a sum over samples). ``keep``
-    (the control's fault): only the first ``keep`` samples, their loss
-    scaled up to the batch's."""
+    blocks of ``rows`` samples (the loss is a sum over samples), for the
+    model ``forward(P, settings, x, t, q)`` (``perfbench.reference.model_of``).
+    ``keep`` (the control's fault): only the first ``keep`` samples, their
+    loss scaled up to the batch's."""
     T = spec["nb_steps"]
     b = data.shape[0]
     t = antithetic_t(key, b, T).to(data.device, torch.float32)
@@ -71,7 +73,7 @@ def loss_and_grads(P, unet_cfg, spec, data, key, L, q=nets.exact, rows=16, keep=
         sl = slice(s, min(s + rows, kept))
         a = alpha[sl].reshape(-1, 1, 1, 1)
         x_a = a * noise[sl] + (1.0 - a) * data[sl]
-        d = nets.unet(params, unet_cfg, x_a, alpha[sl], q)
+        d = forward(params, settings, x_a, alpha[sl], q)
         loss1 = ((d[:, :c] - (data[sl] - noise[sl])) ** 2).sum(dim=(1, 2, 3))
         tar2 = alpha_prev[sl].reshape(-1, 1, 1, 1) * (bn[sl] - wn[sl])
         loss2 = ((d[:, c:] - tar2) ** 2).sum(dim=(1, 2, 3))
@@ -113,14 +115,15 @@ class AdamW:
             p.addcdiv_(self.m[name], denom, value=-lr / c1)
 
 
-def run_steps(P, unet_cfg, spec, batches, keys, L, q=nets.exact, keep=None):
-    """Follow the program's first steps: ``P`` (the initial weights, float32)
-    is updated in place. Returns the losses, the first step's clipped
-    gradient and the weights after the last step (``P`` itself)."""
+def run_steps(P, forward, settings, spec, batches, keys, L, q=nets.exact, keep=None):
+    """Follow the program's first steps of the model ``forward`` with
+    ``settings``: ``P`` (the initial weights, float32) is updated in place.
+    Returns the losses, the first step's clipped gradient and the weights
+    after the last step (``P`` itself)."""
     opt = AdamW(P, tuple(spec["betas"]), spec["eps"], spec["weight_decay"])
     losses, first = [], None
     for k, (data, key) in enumerate(zip(batches, keys)):
-        loss, grads = loss_and_grads(P, unet_cfg, spec, data, key, L, q, keep=keep)
+        loss, grads = loss_and_grads(P, forward, settings, spec, data, key, L, q, keep=keep)
         grads = clip_global(grads, spec["grad_clip"])
         if first is None:
             first = {n: g.clone() for n, g in grads.items()}

@@ -12,7 +12,8 @@ import torch
 from perfbench import control, run
 from perfbench.tests.tiny import tiny
 
-CELLS = ["cat64_bndm.train", "celeba256_latent.train", "celeba256_latent.sample"]
+CELLS = ["cat64_bndm.train", "celeba256_latent.train", "celeba256_latent.sample",
+         "celeba256_latent.sample_cached"]
 
 
 def _fails_a_limit(workload, readings):

@@ -3,13 +3,13 @@ the benchmark's limits on names, units and keys."""
 
 import importlib.util
 import json
-import math
 import os
 import re
+import shutil
 
 import pytest
 
-from perfbench.reference import nets
+from perfbench import files
 from perfbench.tests.tiny import ROOT
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -65,21 +65,7 @@ def test_names_units_and_keys():
 
 @pytest.mark.parametrize("cell", [w["name"] for w in _bench()["workloads"]])
 def test_every_cell_finds_its_files_and_reports(cell):
-    b = _bench()
-    w = {x["name"]: x for x in b["workloads"]}[cell]
-    conf = {c["name"]: c for c in b["configs"]}[w["config"]]
-    config = _json(conf["file"])
-    traffic = _json(f"perfbench/traffic/{cell}.json")
-    assert config["name"] == w["config"] and traffic["limits"]
-    assert importlib.util.find_spec("perfbench.drivers." + traffic["driver"]) is not None
-    assert nets.unet_spec(config["unet"])
-    e2e = [m["name"] for m in b["end_to_end"] if cell in m.get("workloads", [cell])]
-    layer = [m["name"] for m in b["per_layer"] if cell in m["workloads"]]
-    assert "setup_s" in e2e and len(e2e) >= 2 and layer
-    for m in layer:
-        moves = {e["name"]: e for e in b["end_to_end"]}[
-            {p["name"]: p for p in b["per_layer"]}[m]["moves"]]
-        assert cell in moves.get("workloads", [cell])
+    assert files.check_cell(_bench(), ROOT, cell) == []
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in _bench()["per_layer"]])
@@ -93,11 +79,24 @@ def test_every_metric_has_its_reader(metric):
 
 def test_each_config_is_used_and_counts_its_parameters():
     b = _bench()
-    used = {w["config"] for w in b["workloads"]}
-    assert used == {c["name"] for c in b["configs"]}
+    assert files.check_configs(b, ROOT) == []
+    assert files.check(b, ROOT) == []
     pixel = _json("perfbench/configs/cat64_bndm.json")
-    n = sum(math.prod(s) for s in nets.unet_spec(pixel["unet"]).values())
-    assert n == pixel["parameters"] == 113676678
+    assert files.parameters(pixel) == (113676678, 113676678)
     latent = _json("perfbench/configs/celeba256_latent.json")
-    n = sum(math.prod(s) for s in nets.unet_spec(latent["unet"]).values())
-    assert n == latent["parameters"]["unet"]
+    assert files.parameters(latent) == (25845512, 25845512)
+
+
+def test_the_check_finds_what_is_missing(tmp_path):
+    b = _bench()
+    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), tmp_path)
+    shutil.copytree(os.path.join(ROOT, "perfbench"), tmp_path / "perfbench",
+                    ignore=shutil.ignore_patterns(".cache", "__pycache__"))
+    assert files.check(b, str(tmp_path)) == []
+    os.remove(tmp_path / "perfbench" / "metrics" / "cached_shallow_pct.sample.py")
+    os.remove(tmp_path / "perfbench" / "traffic" / "celeba256_latent.train.json")
+    b["configs"].append(dict(b["configs"][0], name="unused"))
+    found = files.check(b, str(tmp_path))
+    assert any("cached_shallow_pct.sample" in p for p in found)
+    assert any("celeba256_latent.train.json" in p for p in found)
+    assert any("unused" in p for p in found)

@@ -31,7 +31,8 @@ def test_the_harness_loads_no_jax():
                       "c, t = tiny('celeba256_latent.sample')\n"
                       "run.run_cell('celeba256_latent.sample', 5, 0.1, 1, device='cpu', config=c,"
                       " traffic=t, t_start=time.perf_counter())\n"
-                      "import perfbench.drivers.train_pixel, perfbench.drivers.train_latent")
+                      "import perfbench.drivers.train_pixel, perfbench.drivers.train_latent, "
+                      "perfbench.drivers.sample_latent_cached, perfbench.files")
     assert not loaded & FORBIDDEN
     assert "bndm_tpu_torch" in loaded
 
@@ -39,7 +40,8 @@ def test_the_harness_loads_no_jax():
 def test_the_reference_loads_nothing_of_the_program():
     loaded = _modules("import perfbench.reference.nets, perfbench.reference.noise, "
                       "perfbench.reference.train, perfbench.reference.sample, "
-                      "perfbench.flops, perfbench.yardstick, perfbench.weights")
+                      "perfbench.flops, perfbench.yardstick, perfbench.weights, "
+                      "perfbench.files")
     assert not loaded & (FORBIDDEN | {"bndm_tpu_torch"})
 
 

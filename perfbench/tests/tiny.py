@@ -41,7 +41,7 @@ def tiny(workload):
         traffic.update(images=16, loader_threads=2)
     if traffic["driver"] == "train_latent":
         traffic.update(latents=16)
-    if traffic["driver"] == "sample_latent":
+    if traffic["driver"] in ("sample_latent", "sample_latent_cached"):
         traffic.update(steps=12, x0_batches=2, checked_steps=3, checked_batches=2,
                        reference_rows=2, decode_microbatch=2, warmup_forwards=1)
         config["unet"]["sample_size"] = 8
