@@ -7,7 +7,10 @@ with the linear alpha = gamma IADB objective (on CUDA the noise draw
 launches K1 at 256^2 pixels and K2 at 512^2), sample with the IADB chain
 (plain, or the serving tiers: ``--conv_int8``/``--int8_mode``,
 ``--static_gn``, ``--attn_softmax_dtype``, ``--cache_interval``) and
-VAE-decode in chunks of ``--decode_microbatch``. It runs on CUDA unless
+VAE-decode in chunks of ``--decode_microbatch``. ``--backbone DiT-XL/2``
+trains and samples a DiT (``models/dit.py``) in the UNet's place, through
+the same train step, loop, checkpoints and plain chain; the UNet's serving
+tiers refuse to run with it. It runs on CUDA unless
 ``--device=cpu`` is given, and raises when CUDA is missing. The multi-host
 flags run it data parallel (each rank trains on its rows of the global
 batch, or samples and decodes its block of each batch; rank 0 writes and
@@ -49,6 +52,37 @@ def latent_unet_config(args, out_channels):
         raise NotImplementedError(f"resolution {args.resolution}")
     return unet_config_for_res(layout, 4, out_channels, dtype=args.compute_dtype,
                                conv_int8=args.conv_int8)
+
+
+BACKBONES = ("unet", "DiT-XL/2")
+# the UNet's serving tiers, by flag: (argument, its value when off)
+UNET_ONLY = {"--cache_interval": ("cache_interval", None), "--cache_depth": ("cache_depth", 1),
+             "--conv_int8": ("conv_int8", False), "--static_gn": ("static_gn", False),
+             "--attn_softmax_dtype": ("attn_softmax_dtype", "float32")}
+
+
+def latent_dit_config(args, out_channels):
+    """The DiT of ``--backbone`` (the tiny one under ``--tiny_model``) on the
+    latents of ``--resolution``; ``out_channels`` twice the latent's gives
+    DiT's ``learn_sigma`` outputs, BNDM's two heads."""
+    from bndm_tpu_torch.models.dit import dit_config
+
+    if out_channels not in (4, 8):
+        raise ValueError(f"the DiT predicts 4 or 8 channels, not {out_channels}")
+    return dit_config("tiny" if args.tiny_model else args.backbone,
+                      input_size=args.resolution // 8, learn_sigma=out_channels == 8,
+                      dtype=args.compute_dtype)
+
+
+def refuse_unet_flags(args):
+    """Exit naming the first UNet-only serving flag set with a DiT
+    backbone."""
+    if args.backbone == "unet":
+        return
+    for flag, (name, off) in UNET_ONLY.items():
+        if getattr(args, name) != off:
+            raise SystemExit(f"{flag} is a serving tier of the UNet; the {args.backbone} "
+                             "backbone samples with the plain chain only")
 
 
 def out_dir_for(args):
@@ -124,6 +158,7 @@ def run_train(args, device):
     from bndm_tpu_torch.models.convert import (export_pipeline_tree, flax_from_state_dict,
                                                iadb_scheduler_config)
     from bndm_tpu_torch.cli.common import is_main_process
+    from bndm_tpu_torch.models import dit
     from bndm_tpu_torch.models.unet2d import UNet2D
     from bndm_tpu_torch.parallel.distributed import barrier
     from bndm_tpu_torch.parallel.mesh import data_shard, run_mesh
@@ -142,7 +177,10 @@ def run_train(args, device):
     mesh = run_mesh(args.train_batch_size)
     shard_index, shard_count = data_shard(mesh)
     torch.manual_seed(args.seed)  # the model's random init
-    model = UNet2D(latent_unet_config(args, out_channels), device=device)
+    if args.backbone == "unet":
+        model = UNet2D(latent_unet_config(args, out_channels), device=device)
+    else:
+        model = dit.DiT(latent_dit_config(args, out_channels), device=device)
     L = torch.from_numpy(load_L_for(args.noise_type, args.bluenoise_dir)).to(device)
     nb = max(len(ds) // args.train_batch_size, 1)
     cfg = LatentTrainConfig(
@@ -157,6 +195,9 @@ def run_train(args, device):
     def save_eval(state):
         # the reference copies the EMA weights into the saved unet/
         sd = state.eval_state_dict()
+        if args.backbone != "unet":
+            dit.save_tree(out_dir, sd, model.cfg)
+            return
         save_params(os.path.join(out_dir, "unet", "model.npz"), flax_from_state_dict(sd))
         if state.ema is not None:
             save_params(os.path.join(out_dir, "unet_ema", "model.npz"),
@@ -177,8 +218,9 @@ def run_train(args, device):
 def run_test(args, device):
     from bndm_tpu_torch.cli.common import (is_main_process, load_tree_unet_params, rows_of,
                                            save_image_grid, serving_relax_kw, synchronize)
-    from bndm_tpu_torch.parallel.mesh import run_mesh
+    from bndm_tpu_torch.models import dit
     from bndm_tpu_torch.models.vae import make_decoder
+    from bndm_tpu_torch.parallel.mesh import run_mesh
     from bndm_tpu_torch.ops.int8 import calibrate_sampling
     from bndm_tpu_torch.samplers.iadb import sample_iadb, sample_iadb_cached
     from bndm_tpu_torch.serving import cached_forwards, serving_model_pair
@@ -186,16 +228,20 @@ def run_test(args, device):
     out_dir = out_dir_for(args)
     for sub in ("images", "seqs"):
         os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
-    out_channels = head_channels(args)
-    # from_pretrained semantics: a published tree's config wins over the flags
-    sd, tree_cfg = load_tree_unet_params(out_dir)
-    if tree_cfg is not None and not args.tiny_model:
-        cfg = dataclasses.replace(tree_cfg, dtype=args.compute_dtype, conv_int8=args.conv_int8)
-        out_channels = cfg.out_channels
-    else:
-        cfg = latent_unet_config(args, out_channels)
-    if args.cache_depth != 1:
-        cfg = dataclasses.replace(cfg, cache_depth=args.cache_depth)
+    if args.backbone == "unet":
+        # from_pretrained semantics: a published tree's config wins over the flags
+        sd, tree_cfg = load_tree_unet_params(out_dir)
+        if tree_cfg is not None and not args.tiny_model:
+            cfg = dataclasses.replace(tree_cfg, dtype=args.compute_dtype,
+                                      conv_int8=args.conv_int8)
+        else:
+            cfg = latent_unet_config(args, head_channels(args))
+        if args.cache_depth != 1:
+            cfg = dataclasses.replace(cfg, cache_depth=args.cache_depth)
+    else:  # the run's own tree: its config wins over the flags
+        sd, cfg = dit.load_tree(out_dir)
+        cfg = dataclasses.replace(cfg, dtype=args.compute_dtype)
+    out_channels = cfg.out_channels
     two_head = args.noise_type in ("gaussianBN", "gaussianRN") and out_channels == 8
     decode = make_decoder(get_vae(args, device), args.decode_microbatch)
     lat_res = args.resolution // 8
@@ -273,11 +319,26 @@ def run_test(args, device):
     return out_dir
 
 
+def build_parser():
+    """The HF flag surface (``cli/hf_args.py``) and ``--backbone``."""
+    from bndm_tpu_torch.cli.hf_args import build_parser as hf_parser
+
+    p = hf_parser()
+    p.add_argument("--backbone", type=str, default="unet", choices=BACKBONES,
+                   help="the denoiser: the latent UNet (default), or DiT-XL/2 (Peebles & "
+                        "Xie; --tiny_model gives a 2-block DiT) on the same train step, "
+                        "checkpoints and plain IADB chain. The DiT refuses the UNet's "
+                        "serving tiers: --cache_interval, --cache_depth, --conv_int8 "
+                        "(int8-static with it), --static_gn, --attn_softmax_dtype")
+    return p
+
+
 def main(argv=None):
     from bndm_tpu_torch.cli.common import disable_tf32, resolve_device, start_distributed
-    from bndm_tpu_torch.cli.hf_args import parse_args
+    from bndm_tpu_torch.cli.hf_args import resolve_args
 
-    args = parse_args(argv)
+    args = resolve_args(build_parser().parse_args(argv))
+    refuse_unet_flags(args)
     device = start_distributed(args, resolve_device(args.device))
     disable_tf32()
     np.random.seed(args.seed)

@@ -36,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from bndm_tpu_torch.models.dit import DiT, DiTConfig
 from bndm_tpu_torch.models.unet2d import UNet2D
 from bndm_tpu_torch.ops.int8 import calibrate_sampling, calibrate_sampling_ddim
 from bndm_tpu_torch.ops.static_norm import drift_correct_gnstats, gn_step_index, smooth_gn_tables
@@ -44,9 +45,10 @@ from bndm_tpu_torch.samplers.iadb import (sample_iadb, sample_iadb_cached,
 
 
 def build_model(cfg, state_dict, device):
-    """A UNet2D of ``cfg`` on ``device`` with ``state_dict`` loaded strictly,
-    cast for serving (``cast_params_``) and in eval mode."""
-    model = UNet2D(cfg, device=device)
+    """The model of ``cfg`` (a ``UNet2D``, or a ``DiT`` for a ``DiTConfig``)
+    on ``device`` with ``state_dict`` loaded strictly, cast for serving
+    (``cast_params_``) and in eval mode."""
+    model = (DiT if isinstance(cfg, DiTConfig) else UNet2D)(cfg, device=device)
     model.load_state_dict(state_dict, strict=True)
     return model.cast_params_().eval()
 
