@@ -35,6 +35,15 @@ the output in float32. Attention goes through
 ``F.scaled_dot_product_attention`` (flash or cuDNN on the card, the math
 path on the CPU); ``attention.calls`` counts its calls. The forward opens
 the spans ``dit.embed``, ``dit.block`` (one a block) and ``dit.final``.
+
+On the card (the float32 residual stream on CUDA, :func:`fuses_adaln`) the
+adaLN sub-layers run as the fused units of ``ops/adaln.py``: each residual
+update ``x + gate * branch`` is done in the pass of the LayerNorm and
+modulation that follow it, so a block hands its MLP update ``(y, gate)`` on
+to the next block's attention LayerNorm, and the last block's to the final
+layer's (``DiTBlock.forward_fused``, ``FinalLayer.forward_fused``). The
+units hold the modulation and the gate product in float32 and round once;
+the CPU runs the plain sequence above.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bndm_tpu_torch.models.unet2d import Conv2d, Linear, get_timestep_embedding
+from bndm_tpu_torch.ops.adaln import adaln
 from bndm_tpu_torch.utils.timing import span
 
 
@@ -191,6 +201,17 @@ class DiTBlock(nn.Module):
         x = x + gate1 * self.attn(_modulate(_norm(x, self.cfg), shift1, scale1))
         return x + gate2 * self.mlp(_modulate(_norm(x, self.cfg), shift2, scale2))
 
+    def forward_fused(self, x, c, pending):
+        """The block through fused adaLN units: ``pending`` is the previous
+        block's MLP update ``(y, gate)``, or ``()`` before the first block;
+        returns the stream before this block's MLP update, and that update."""
+        shift1, scale1, gate1, shift2, scale2, gate2 = self.adaLN_modulation(c)[:, None].chunk(
+            6, dim=2)
+        eps = self.cfg.norm_eps
+        x, z = adaln(x, shift1, scale1, eps, *pending)
+        x, z = adaln(x, shift2, scale2, eps, self.attn(z), gate1)
+        return x, (self.mlp(z), gate2)
+
 
 class FinalLayer(nn.Module):
     def __init__(self, cfg):
@@ -203,6 +224,18 @@ class FinalLayer(nn.Module):
     def forward(self, x, c):
         shift, scale = self.adaLN_modulation(c)[:, None].chunk(2, dim=2)
         return self.linear(_modulate(_norm(x, self.cfg), shift, scale))
+
+    def forward_fused(self, x, c, pending):
+        """The final layer through a fused adaLN unit that first adds the
+        last block's MLP update ``pending``."""
+        shift, scale = self.adaLN_modulation(c)[:, None].chunk(2, dim=2)
+        return self.linear(adaln(x, shift, scale, self.cfg.norm_eps, *pending)[1])
+
+
+def fuses_adaln(h):
+    """Whether the forward of the (float32) residual stream ``h`` takes the
+    fused adaLN kernels: on CUDA."""
+    return h.is_cuda
 
 
 class DiT(nn.Module):
@@ -266,6 +299,13 @@ class DiT(nn.Module):
         with span("dit.embed"):
             h = self.x_embedder(x).float() + self.pos_embed
             c = self.t_embedder(t)
+        if fuses_adaln(h):
+            pending = ()
+            for block in self.blocks:
+                with span("dit.block"):
+                    h, pending = block.forward_fused(h, c, pending)
+            with span("dit.final"):
+                return self.unpatchify(self.final_layer.forward_fused(h, c, pending)).float()
         for block in self.blocks:
             with span("dit.block"):
                 h = block(h, c)

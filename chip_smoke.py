@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py             # every phase below
     python3 chip_smoke.py --kernels   # phases 1-4 alone (K1-K3)
+    python3 chip_smoke.py --adaln     # phases 1, 2 and 4b alone (the fused adaLN units)
     python3 chip_smoke.py --probes    # phases 1, 2 and 5 alone (the probes)
     python3 chip_smoke.py --tiers     # phases 1, 2 and 9b alone (the serving tiers)
     python3 chip_smoke.py --pipelines # phases 1, 2 and 12-14 alone (DDIM, latent)
@@ -30,6 +31,14 @@ PyTorch version:
      unfused torch sequence timed in alternating turns at M = 192 and 1500,
      beside the plain version and both bounds; K3's backward (torch ops)
      timed beside its bound;
+ 4b. the fused adaLN units (ops/adaln.py) at the DiT-XL/2 train cell's
+     shape (128, 256, 1152), with and without the residual input, against
+     their plain twins within one ulp (plus the float32 rounding of the
+     sums) and bit for bit twice; timed against the plain twin and the
+     unfused model sequence in alternating turns, beside the byte bound;
+     then DiT-XL/2's forward and backward on the card: 57 launches of each
+     pass a step, and no farther from the float32 model than the plain
+     bf16 sequence;
   5. the streaming probes P1-P3 (y + 1 in bf16) bitwise against their
      plain version at the full and ragged shapes, on edge values, every
      variant of the bench's sweep; each probe's variants and torch.add
@@ -120,6 +129,7 @@ directory and writes nothing into the repository except the kernels' build
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -261,12 +271,14 @@ def tpu_test_L(torch, n):
 
 def _counted():
     """Every counted wrapper, by the name the script reads its count under."""
+    from bndm_tpu_torch.ops.adaln import adaln_backward, adaln_forward
     from bndm_tpu_torch.ops.cuda_bluenoise import FusedBlueNoise, fused_bluenoise_flat, tri_matmul
     from bndm_tpu_torch.ops.stream_probes import dma_add_one, nhwc_add_one, stream_add_one
 
     return {"tri_matmul": tri_matmul, "fused_bluenoise": fused_bluenoise_flat,
             "fused_bluenoise_grad": FusedBlueNoise, "stream_add_one": stream_add_one,
-            "dma_add_one": dma_add_one, "nhwc_add_one": nhwc_add_one}
+            "dma_add_one": dma_add_one, "nhwc_add_one": nhwc_add_one,
+            "adaln_forward": adaln_forward, "adaln_backward": adaln_backward}
 
 
 def reset_launches():
@@ -721,6 +733,185 @@ def phase_k2(torch, L_blue, peak, flush):
             f"ms), bound {bound_ms:.4f} ms ({bound_by})")
     extra = {"step0_max_abs_err_fp64": [{"L": lname, "m": m, "err": e} for lname, m, e in step0]}
     return rows, worst, {"grad_max_abs_err": grad_err, "tangent_max_abs_err": tan_err}, k3_rows, extra
+
+
+def _twin_gap(torch, got, want, terms):
+    """(worst excess, max |difference|) of ``got`` over its plain twin's
+    ``want``: the excess is the difference less one ulp of ``want``'s dtype
+    and 1e-5 of ``terms`` (the sum of the absolute values that made each
+    element), the card test's tolerance; at most 0 passes."""
+    mant = 7 if want.dtype == torch.bfloat16 else 23
+    ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(2.0 ** -126))) - mant)
+    err = (got.float() - want.float()).abs()
+    return float((err - ulp - 1e-5 * terms).max()), float(err.max())
+
+
+def _adaln_twin_check(torch, t, residual, eps):
+    """Phase 4b (a): one fused unit's forward and backward on ``t`` against
+    the plain twins (the backward twin on the kernels' own forward outputs)
+    and against a second call bit for bit. Returns the max |difference| of
+    each output."""
+    from bndm_tpu_torch.ops import adaln as A
+
+    y, gate = (t["y"], t["gate"]) if residual else (None, None)
+    got = A.adaln_forward(t["x"], t["shift"], t["scale"], eps, y, gate)
+    xs, z, mean, rstd = got
+    gotb = A.adaln_backward(t["dz"], t["dxs"], xs, mean, rstd, t["scale"], y, gate)
+    want = A.adaln_forward_plain(t["x"], t["shift"], t["scale"], eps, y, gate)
+    wantb = A.adaln_backward_plain(t["dz"], t["dxs"], xs, mean, rstd, t["scale"], y, gate)
+    check(torch.allclose(mean, want[2], rtol=1e-5, atol=1e-6)
+          and torch.allclose(rstd, want[3], rtol=1e-5, atol=1e-6),
+          "adaln: the row statistics are not the plain twin's")
+    scale1, dz = 1 + t["scale"].float(), t["dz"].float()
+    xhat = (xs - mean[..., None]) * rstd[..., None]
+    dxhat = (dz * scale1).abs()
+    terms_dx = rstd[..., None] * (dxhat + xhat.abs() * (dxhat * xhat.abs()).mean(-1, True)
+                                  + dxhat.mean(-1, True)) + t["dxs"].abs()
+    outs = {"x'": (xs, want[0], t["x"].abs() + (t["gate"].float() * t["y"].float()).abs()
+                   if residual else 0),
+            "z": (z, want[1], xhat.abs() * scale1.abs() + t["shift"].float().abs()),
+            "dx": (gotb[0], wantb[0], terms_dx),
+            "dshift": (gotb[1], wantb[1], dz.abs().sum(1, keepdim=True)),
+            "dscale": (gotb[2], wantb[2], (dz * xhat).abs().sum(1, keepdim=True))}
+    if residual:
+        outs["dy"] = (gotb[3], wantb[3], t["gate"].float().abs() * terms_dx)
+        outs["dgate"] = (gotb[4], wantb[4],
+                         (terms_dx * t["y"].float().abs()).sum(1, keepdim=True))
+    errs = {}
+    for name, (a, b, terms) in outs.items():
+        excess, errs[name] = _twin_gap(torch, a, b, terms)
+        check(excess <= 0, f"adaln: {name} is {excess:.3g} outside the plain twin's tolerance "
+                           f"({'with' if residual else 'without'} the residual input)")
+    again = A.adaln_forward(t["x"], t["shift"], t["scale"], eps, y, gate)
+    againb = A.adaln_backward(t["dz"], t["dxs"], again[0], again[2], again[3], t["scale"], y,
+                              gate)
+    check(all((a is None and b is None) or torch.equal(a, b)
+              for a, b in zip(got + gotb, again + againb)),
+          "adaln: a second call does not give the same bits")
+    return errs
+
+
+def _dit_gaps(torch, D, model, x, t, ref, fused):
+    """Relative distances of ``model``'s output and parameter gradients,
+    through the fused units or the plain sequence, from ``ref``'s."""
+    was = D.fuses_adaln
+    D.fuses_adaln = lambda h: fused
+    try:
+        out, grads = _dit_run(torch, model, x, t)
+    finally:
+        D.fuses_adaln = was
+    ref_out, ref_grads = ref
+    num = torch.stack([(a - b).norm() for a, b in zip(grads, ref_grads)]).norm()
+    den = torch.stack([b.norm() for b in ref_grads]).norm()
+    return float((out - ref_out).norm() / ref_out.norm()), float(num / den)
+
+
+def _dit_run(torch, model, x, t):
+    out = model(x, t).float()
+    return out.detach(), torch.autograd.grad(out.square().mean(), list(model.parameters()))
+
+
+DIT_BATCH = 16
+
+
+def phase_adaln(torch):
+    """Phase 4b: the fused adaLN units (ops/adaln.py) against their plain
+    twins at the DiT-XL/2 train cell's shape, with and without the residual
+    input, bit for bit twice; each form timed against the plain twin and the
+    unfused model sequence in alternating turns (bench_adaln's timers), beside
+    perfbench/adaln.py's byte bound; then the DiT path: DiT-XL/2 (the cell's
+    bf16 model, its zero-initialised weights drawn) forward and backward at
+    batch DIT_BATCH, counted, and held, as the plain bf16 sequence is, to the
+    float32 model through the plain sequence."""
+    from bndm_tpu_torch.models import dit as D
+    from bndm_tpu_torch.scripts import bench_adaln as BA
+    from perfbench import adaln as PA
+    from perfbench.yardstick import PEAK_HBM_BYTES_S
+
+    t = BA.inputs()  # (128, 256, 1152): bf16 branch and modulation, float32 stream
+    elems = t["x"].numel()
+    rows = {}
+    for kind, residual, nbytes in (("interior", True, PA.INTERIOR), ("first", False, PA.FIRST)):
+        errs = _adaln_twin_check(torch, t, residual, BA.EPS)
+        k, pl = BA.turns(lambda: BA.fused(t, residual), lambda: BA.plain(t, residual))
+        k2, un = BA.turns(lambda: BA.fused(t, residual), lambda: BA.unfused(t, residual))
+        rows[kind] = {"ms": k, "ms_again": k2, "plain_ms": pl, "unfused_torch_ms": un,
+                      "bound_ms": nbytes * elems / PEAK_HBM_BYTES_S * 1e3, "max_abs_err": errs}
+        log(f"adaln {kind}: fused {k:.3f} ms (again {k2:.3f}), plain twin {pl:.3f} ms, unfused "
+            f"model sequence {un:.3f} ms, bound {rows[kind]['bound_ms']:.3f} ms; max |diff| "
+            + ", ".join(f"{n} {e:.3g}" for n, e in errs.items()))
+    del t
+    torch.cuda.empty_cache()
+
+    cfg = D.dit_config("DiT-XL/2", input_size=32, in_channels=4, learn_sigma=True,
+                       dtype="bfloat16")
+    torch.manual_seed(0)
+    model = D.DiT(cfg, device="cuda")
+    with torch.no_grad():
+        for p in model.parameters():
+            if not p.any():  # adaLN-Zero: without gates the units would add nothing
+                p.normal_(0.0, 0.02)
+    m32 = D.DiT(dataclasses.replace(cfg, dtype="float32"), device="cuda")
+    m32.load_state_dict(model.state_dict())
+    x = torch.randn(DIT_BATCH, 4, 32, 32, device="cuda")
+    tt = torch.rand(DIT_BATCH, device="cuda")
+    units = 2 * cfg.depth + 1
+    steps = 2
+    reset_launches()
+    for _ in range(steps):
+        _dit_run(torch, model, x, tt)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    log(f"adaln: DiT-XL/2 path, {steps} forward and backward passes at batch {DIT_BATCH}: "
+        f"launches {counts}")
+    check(counts["adaln_forward"] == counts["adaln_backward"] == steps * units,
+          f"adaln: the DiT path must launch each fused pass {units} times a step")
+    check(sum(counts.values()) == 2 * steps * units, "adaln: another kernel ran on the DiT path")
+    was = D.fuses_adaln
+    D.fuses_adaln = lambda h: False
+    try:
+        ref = _dit_run(torch, m32, x, tt)
+    finally:
+        D.fuses_adaln = was
+    del m32
+    fused, plain = (_dit_gaps(torch, D, model, x, tt, ref, f) for f in (True, False))
+    log(f"adaln: DiT-XL/2 bf16 against the float32 model, output and gradients: fused units "
+        f"{fused[0]:.3g}, {fused[1]:.3g}; plain sequence {plain[0]:.3g}, {plain[1]:.3g}")
+    check(fused[0] <= 1.1 * plain[0] and fused[1] <= 1.1 * plain[1],
+          "adaln: the fused DiT is farther from the float32 model than the plain bf16 sequence")
+    del model, ref
+    torch.cuda.empty_cache()
+    return {"rows": rows, "launches": counts["adaln_forward"] // steps,
+            "launches_backward": counts["adaln_backward"] // steps,
+            "dit_gap_fused": fused, "dit_gap_plain": plain}
+
+
+def adaln_kernels(ad):
+    """The kernels line's row of the fused adaLN units (phase 4b)."""
+    r = ad["rows"]["interior"]
+    return [{
+        "name": "adaln",
+        "route": "triton",
+        "source": "bndm_tpu_torch/ops/adaln.py",
+        "replaces": None,  # no TPU kernel: the JAX package leaves the sub-layer to XLA
+        "note": "bndm_adaln_fwd; bndm_adaln_bwd + bndm_adaln_colsum; launches a DiT-XL/2 "
+                "step, forward and backward",
+        "launches": ad["launches"],
+        "launches_backward": ad["launches_backward"],
+        "max_abs_err": max(max(row["max_abs_err"].values()) for row in ad["rows"].values()),
+        "ms": r["ms"],
+        "kernel_ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call does the update, LayerNorm and modulation
+        "unfused_torch_ms": r["unfused_torch_ms"],
+        "unfused_torch": "x + gate * y, F.layer_norm, cast, modulation; autograd's backward",
+        "shape": "(128, 256, 1152), bf16 over a float32 stream, forward and backward",
+        "first": ad["rows"]["first"],
+        "dit_gap_fused": ad["dit_gap_fused"],
+        "dit_gap_plain": ad["dit_gap_plain"],
+    }]
 
 
 def _edge_input(torch, shape, seed):
@@ -2042,10 +2233,10 @@ def phase_demo(torch, work):
 
 
 def main(argv):
-    if argv not in ([], ["--kernels"], ["--probes"], ["--tiers"], ["--pipelines"], ["--train"],
-                    ["--parallel"], ["--surfaces"]):
-        log(f"FAIL: unknown arguments {argv} (the options are --kernels, --probes, --tiers, "
-            "--pipelines, --train, --parallel and --surfaces)")
+    if argv not in ([], ["--kernels"], ["--adaln"], ["--probes"], ["--tiers"], ["--pipelines"],
+                    ["--train"], ["--parallel"], ["--surfaces"]):
+        log(f"FAIL: unknown arguments {argv} (the options are --kernels, --adaln, --probes, "
+            "--tiers, --pipelines, --train, --parallel and --surfaces)")
         return 2
     only = argv[0] if argv else None
     if not os.path.isdir(os.path.join(HERE, "bndm_tpu_torch")):
@@ -2080,6 +2271,8 @@ def main(argv):
     log(f"build: {sorted(libs)} in {time.time() - t0:.1f}s")
     if only == "--probes":  # phase 5 alone
         return finish(torch, kind, probe_kernels(phase_probes(torch, peak[0])), t_start)
+    if only == "--adaln":  # phase 4b alone
+        return finish(torch, kind, adaln_kernels(phase_adaln(torch)), t_start)
 
     with tempfile.TemporaryDirectory(prefix="bndm_chip_smoke_") as work, \
             contextlib.chdir(work):  # the CLI writes its run folders under the cwd
@@ -2118,6 +2311,9 @@ def main(argv):
         k2 = phase_k2(torch, L_blue, peak, flush)
         if only == "--kernels":  # phases 3-4 alone: no path driven, no launches counted
             return finish(torch, kind, k_kernels(k1, k2, None), t_start)
+        # 4b. the fused adaLN units and the DiT path
+        ad = phase_adaln(torch)
+        torch.cuda.empty_cache()
         # 5. the streaming probes and their bench entry points
         probes = phase_probes(torch, peak[0])
         torch.cuda.empty_cache()
@@ -2186,7 +2382,7 @@ def main(argv):
     kernels[0]["launches_figs_total"] = fg["launches"]
     kernels[0]["figs"] = fg["rows"]
     kernels[0]["figs_spectrum_max_abs_err"] = fg["spectrum_err"]
-    kernels += probe_kernels(probes)
+    kernels += adaln_kernels(ad) + probe_kernels(probes)
     log(f"train: {tr['images_per_s']:.2f} images/s over steps 2-8, steady "
         f"{tr['steady_images_per_s']:.2f}, first step {tr['first_step_s']:.3f} s (batch 64)")
     return finish(torch, kind, kernels, t_start)

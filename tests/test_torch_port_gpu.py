@@ -580,3 +580,129 @@ def test_nhwc_add_one_sweep_is_bitwise_plain(variant, shape):
     _cuda_or_skip()
     x = _edge_bf16(shape, 2)
     _assert_bits(nhwc_add_one(x, *P3_SWEEP[variant]), x)
+
+
+# ---------------------- the fused adaLN unit (Triton) ------------------------
+
+
+def _ulp(want):
+    """The spacing of ``want``'s dtype (bf16 or float32) at each element."""
+    mant = 7 if want.dtype == torch.bfloat16 else 23
+    return torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(2.0 ** -126))) - mant)
+
+
+def _close_to_twin(got, want, terms):
+    """``got`` within one ulp of the plain twin's ``want`` in their dtype,
+    plus 1e-5 of ``terms`` (the sum of the absolute values that made each
+    element): float32 sums of up to D or N terms in another order before
+    the store (~sqrt(1152) x 2^-24 = 2e-6 of them)."""
+    err = (got.float() - want.float()).abs()
+    worst = float((err - _ulp(want) - 1e-5 * terms).max())
+    assert worst <= 0, worst
+
+
+def _adaln_inputs(shape, dtype, seed):
+    """A unit's operands on the card: the float32 stream x and its incoming
+    gradient dxs, the branch output y and dz in ``dtype``, and gate, shift
+    and scale as chunks of one (B, 1, 3 D) modulation row, as the DiT cuts
+    them."""
+    b, n, d = shape
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def randn(*s, dt=torch.float32, std=1.0):
+        return (torch.randn(s, generator=g, device="cuda") * std).to(dt)
+
+    gate, shift, scale = randn(b, 1, 3 * d, dt=dtype, std=0.3).chunk(3, dim=2)
+    return dict(x=randn(b, n, d), y=randn(b, n, d, dt=dtype), gate=gate, shift=shift,
+                scale=scale, dz=randn(b, n, d, dt=dtype), dxs=randn(b, n, d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(4, 256, 1152), (3, 37, 72)])
+def test_adaln_kernels_match_their_plain_twins(shape, dtype, residual):
+    """The fused forward and backward against the plain twins at the cell's
+    width and at an odd size (D not a power of two, N not a multiple of the
+    token block): every output within one ulp of its dtype plus the float32
+    rounding of the sums before it (``_close_to_twin``), the statistics to
+    1e-5; one counted call each; the same bits on a second call."""
+    from bndm_tpu_torch.ops import adaln as A
+
+    _cuda_or_skip()
+    t = _adaln_inputs(shape, dtype, 7)
+    y, gate = (t["y"], t["gate"]) if residual else (None, None)
+    f0, b0 = A.adaln_forward.launches, A.adaln_backward.launches
+    got = A.adaln_forward(t["x"], t["shift"], t["scale"], 1e-6, y, gate)
+    gotb = A.adaln_backward(t["dz"], t["dxs"], *got[:1], *got[2:], t["scale"], y, gate)
+    torch.cuda.synchronize()
+    assert (A.adaln_forward.launches, A.adaln_backward.launches) == (f0 + 1, b0 + 1)
+    want = A.adaln_forward_plain(t["x"], t["shift"], t["scale"], 1e-6, y, gate)
+    # the backward twin on the kernel's own forward outputs, so that each
+    # pass is held to its twin alone
+    wantb = A.adaln_backward_plain(t["dz"], t["dxs"], got[0], got[2], got[3], t["scale"], y,
+                                   gate)
+    xs, z, mean, rstd = got
+    _close_to_twin(xs, want[0], t["x"].abs() + (t["gate"].float() * t["y"].float()).abs()
+                   if residual else 0)
+    torch.testing.assert_close(mean, want[2], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rstd, want[3], rtol=1e-5, atol=1e-6)
+    xhat = (xs - mean[..., None]) * rstd[..., None]
+    _close_to_twin(z, want[1], xhat.abs() * (1 + t["scale"].float()).abs()
+                   + t["shift"].float().abs())
+    dx, dshift, dscale, dy, dgate = gotb
+    dz = t["dz"].float()
+    dxhat = (dz * (1 + t["scale"].float())).abs()
+    terms_dx = rstd[..., None] * (dxhat + xhat.abs() * (dxhat * xhat.abs()).mean(-1, True)
+                                  + dxhat.mean(-1, True)) + t["dxs"].abs()
+    _close_to_twin(dx, wantb[0], terms_dx)
+    _close_to_twin(dshift, wantb[1], dz.abs().sum(1, keepdim=True))
+    _close_to_twin(dscale, wantb[2], (dz * xhat).abs().sum(1, keepdim=True))
+    if residual:
+        _close_to_twin(dy, wantb[3], t["gate"].float().abs() * terms_dx)
+        _close_to_twin(dgate, wantb[4], (terms_dx * t["y"].float().abs()).sum(1, keepdim=True))
+    else:
+        assert dy is None and dgate is None
+    again = A.adaln_forward(t["x"], t["shift"], t["scale"], 1e-6, y, gate)
+    againb = A.adaln_backward(t["dz"], t["dxs"], again[0], again[2], again[3], t["scale"], y,
+                              gate)
+    for a, b in zip(got + gotb, again + againb):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_a_tiny_dit_takes_the_fused_units_on_the_card(monkeypatch, dtype):
+    """A tiny DiT's forward and backward on CUDA launch each fused pass once
+    a sub-layer (2 a block and the final layer's), and agree with the same
+    model through the plain sequence: in float32 to float32 noise; in bf16
+    within the plain sequence's own rounding."""
+    from bndm_tpu_torch.models import dit as D
+    from bndm_tpu_torch.ops import adaln as A
+
+    _cuda_or_skip()
+    cfg = D.dit_config("tiny", input_size=8, dtype=dtype)
+    torch.manual_seed(0)
+    m = D.DiT(cfg, device="cuda")
+    with torch.no_grad():
+        for p in m.parameters():
+            p.normal_(0, 0.1)
+    x = torch.randn(3, 4, 8, 8, device="cuda")
+    t = torch.rand(3, device="cuda")
+    params = list(m.parameters())
+
+    def run():
+        out = m(x, t)
+        return out.detach(), torch.autograd.grad(out.square().sum(), params)
+
+    f0, b0 = A.adaln_forward.launches, A.adaln_backward.launches
+    out, grads = run()
+    torch.cuda.synchronize()
+    units = 2 * cfg.depth + 1
+    assert (A.adaln_forward.launches - f0, A.adaln_backward.launches - b0) == (units, units)
+    monkeypatch.setattr(D, "fuses_adaln", lambda h: False)
+    ref, ref_grads = run()
+    tol = 1e-5 if dtype == "float32" else 3e-2
+    assert float((out - ref).norm() / ref.norm()) < tol
+    num = torch.stack([(a - b).norm() for a, b in zip(grads, ref_grads)]).norm()
+    assert float(num / torch.stack([b.norm() for b in ref_grads]).norm()) < tol
