@@ -27,6 +27,21 @@ def _random_L(n, seed):
     return L.cuda()
 
 
+@pytest.fixture(scope="module")
+def blue_L(tmp_path_factory):
+    """The generated blue-noise L that the CLIs draw with (cli/common.py::
+    load_L_for), built once in a temporary directory, on the card."""
+    from bndm_tpu_torch.cli.common import load_L_for
+
+    _cuda_or_skip()
+    return torch.from_numpy(load_L_for("gaussianBN", str(tmp_path_factory.mktemp("bn")))).cuda()
+
+
+def _L_of(request, which, seed):
+    """The blue-noise L or a random one of seed ``seed``, by ``which``."""
+    return request.getfixturevalue("blue_L") if which == "blue" else _random_L(4096, seed)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("m", [1, 7, 12, 16, 17, 100, 1500])
 def test_tri_matmul_kernel_matches_fp64_and_plain(m):
@@ -62,18 +77,21 @@ def test_tri_matmul_small_and_odd_n():
 def _sweep():
     from bndm_tpu_torch.ops.cuda_bluenoise import SKINNY_MAX_M
 
-    return sorted({1, 7, 12, 24, 48, 96, 192, 768, 1500, SKINNY_MAX_M, SKINNY_MAX_M + 1})
+    # chip_smoke.py phase 3's M, the figure CLI's 3 and 1200, both sides of the crossover
+    return sorted({1, 3, 7, 12, 24, 32, 48, 64, 96, 192, 768, 1024, 1200, 1500, SKINNY_MAX_M,
+                   SKINNY_MAX_M + 1})
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m", _sweep())
-def test_tri_matmul_m_sweep_is_right_and_deterministic(m):
-    """K1 over the M sweep of chip_smoke.py phase 3 and both sides of the
-    crossover (both designs): within 2e-5 of fp64 and of the plain version,
-    and the same bits on a second call (no float atomics, fixed summation
-    order)."""
+@pytest.mark.parametrize("which", ["random", "blue"])
+def test_tri_matmul_m_sweep_is_right_and_deterministic(request, which, m):
+    """K1 over the M sweep of chip_smoke.py phase 3, the figure CLI's and
+    both sides of the crossover (both designs), on a random L and on the
+    blue-noise L: within 2e-5 of fp64 and of the plain version, and the
+    same bits on a second call (no float atomics, fixed summation order)."""
     _cuda_or_skip()
-    L = _random_L(4096, 100 + m)
+    L = _L_of(request, which, 100 + m)
     w = torch.randn(4096, m, generator=torch.Generator().manual_seed(m)).cuda()
     got = tri_matmul(L, w)
     again = tri_matmul(L, w)
@@ -130,12 +148,14 @@ def test_tri_matmul_rejects_mixed_devices():
 @pytest.mark.gpu
 @pytest.mark.parametrize("m", [1, 7, 33, 48, 96, 192, 768, 1500])
 @pytest.mark.parametrize("gbn_only", [False, True])
-def test_fused_bluenoise_kernel_matches_plain(m, gbn_only):
-    """K2 on the card: its white noise equals the plain version's bits to
-    1e-5 (libm against CUDA's logf/cosf), bn is within 2e-5 of fp64 L @ wn
-    and of the plain bn, the mix is exact, and each call is one launch."""
+@pytest.mark.parametrize("which", ["random", "blue"])
+def test_fused_bluenoise_kernel_matches_plain(request, which, m, gbn_only):
+    """K2 on the card, on a random L and on the blue-noise L: its white
+    noise equals the plain version's bits to 1e-5 (libm against CUDA's
+    logf/cosf), bn is within 2e-5 of fp64 L @ wn and of the plain bn, the
+    mix is exact, and each call is one launch."""
     _cuda_or_skip()
-    L = _random_L(4096, m)
+    L = _L_of(request, which, m)
     gamma = torch.rand(m, generator=torch.Generator().manual_seed(m)).cuda()
     seeds = (12345 + m, 678)
     before = fused_bluenoise_flat.launches
@@ -464,14 +484,18 @@ def test_eval_sampling_and_loads_between_graphed_steps(monkeypatch):
 
 def _edge_bf16(shape, seed):
     """bf16 N(0, 64^2) values with +-0, +-inf, values of 256 and more (where
-    +1 rounds), values far below 2^-8 and subnormals at the start and end."""
+    +1 rounds), values far below 2^-8 and subnormals at the start, the end
+    and every 997th element."""
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(shape, generator=g) * 64.0
-    edges = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), 256.0, 257.0, -256.0, 511.0,
-                          -1.0, 2.0**-9, 1e-20, -1e-30, 1e-39])
+    edges = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), 256.0, 257.0, 258.0, -256.0,
+                          511.0, 1e4, -1e4, 3e38, -1.0, 2.0**-9, -2.0**-9, 1e-20, -1e-30, 1e-39,
+                          -1e-39])
     flat = x.view(-1)
     k = min(len(edges), flat.numel())
     flat[:k], flat[-k:] = edges[:k], edges[-k:]
+    idx = torch.arange(0, flat.numel(), 997)
+    flat[idx] = edges.repeat(len(idx) // len(edges) + 1)[: len(idx)]
     return x.to(torch.bfloat16).cuda()
 
 
